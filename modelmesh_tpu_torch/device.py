@@ -1,0 +1,49 @@
+"""Device rule and host-sync accounting for the port's entry points.
+
+Entry points take an explicit ``device``. Left at ``None`` it means the
+first CUDA device, and a host without one raises: the port never carries
+on on the CPU by itself. ``device="cpu"`` is the caller's explicit choice
+(the tests make it); there every kernel wrapper runs its plain PyTorch
+version.
+
+The solve's convergence gates are Python control flow on 0-d device
+tensors, and each decision is a host sync (the stream drains before the
+value reaches Python). ``item`` and ``readback`` are the only ways the
+solve path moves a value to the host, and ``host_syncs`` counts them so a
+run can report syncs per solve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Host syncs made through item()/readback() since the process started (or
+# the caller last zeroed it).
+host_syncs = 0
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` -> ``cuda:0``, or ``RuntimeError`` when no CUDA device
+    exists; anything else is taken as the caller's choice."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device found; pass device='cpu' to run the plain "
+                "PyTorch path on the host"
+            )
+        return torch.device("cuda", 0)
+    return torch.device(device)
+
+
+def item(t: torch.Tensor):
+    """``t.item()``, counted as one host sync."""
+    global host_syncs
+    host_syncs += 1
+    return t.item()
+
+
+def readback(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to host memory, counted as one host sync."""
+    global host_syncs
+    host_syncs += 1
+    return t.cpu()

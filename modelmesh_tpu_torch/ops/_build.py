@@ -1,0 +1,141 @@
+"""Builds the port's CUDA kernels from the package's own sources.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
+plain C interface under ``modelmesh_tpu_torch/_build/`` (git-ignored), the
+first time a wrapper needs it, and is bound with ``ctypes``. The library
+name carries a digest of the source and the flags, so an edited source
+rebuilds and a stale library is never loaded. Sources build in parallel
+(one ``nvcc`` each, all started together).
+
+Nothing here runs at import time: this module is imported on hosts with
+no CUDA toolkit, where only the kernels' plain PyTorch versions run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# No --use_fast_math: the kernels' selection key must round exactly as
+# PyTorch's own CUDA log does. --fmad=false keeps nvcc from contracting a
+# multiply and an add into one differently rounded FMA.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every exported function, by library.
+SIGNATURES: dict[str, dict[str, list]] = {
+    "masked_sparse": {
+        "mm_masked_row_min": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "mm_masked_row_matvec": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P,
+        ],
+        "mm_masked_col_matvec": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+        ],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}  #: guarded-by: _lock
+# Per-library compiler output (ptxas register/spill report) and seconds
+# spent building, from the last build in this process.
+build_log: dict[str, str] = {}  #: guarded-by: _lock
+build_seconds: dict[str, float] = {}  #: guarded-by: _lock
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (on PATH or under /usr/local/cuda): the CUDA "
+        "kernels cannot be built on this host"
+    )
+
+
+def _target(name: str) -> tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _build_locked(names) -> None:
+    """Compile every library in ``names`` that has no up-to-date build,
+    all ``nvcc`` processes running at once."""
+    todo = []
+    for name in names:
+        src, out = _target(name)
+        if not out.exists():
+            todo.append((name, src, out))
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name, src, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        procs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        build_log[name] = log
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def build_all() -> None:
+    """Build (if needed) and load every library, the builds in parallel."""
+    with _lock:
+        _build_locked(SIGNATURES)
+        for name in SIGNATURES:
+            _load_locked(name)
+
+
+def _load_locked(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        _build_locked([name])
+        lib = ctypes.CDLL(str(_target(name)[1]))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The bound library ``name``, built at first use."""
+    with _lock:
+        return _load_locked(name)

@@ -1,0 +1,86 @@
+"""Single-device global placement solve: the config, result and entry.
+
+Port of ``modelmesh_tpu/ops/solve.py``. Only the sparse top-K pipeline is
+ported; a config that routes dense raises ``NotImplementedError``. The
+solve runs on the device its problem's tensors are on.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from modelmesh_tpu_torch.ops import costs as costs_mod
+from modelmesh_tpu_torch.ops.sparse import solve_sparse
+
+
+class SolveConfig(NamedTuple):
+    """The reference's solver knobs (ops/solve.py documents each one)."""
+
+    eps: float = 0.05
+    sinkhorn_iters: int = 10
+    auction_iters: int = 40
+    eta: float = 0.5
+    sinkhorn_tol: float = 0.0
+    sinkhorn_chunk: int = 4
+    auction_stall_tol: float = 0.0
+    tau: float = 1.0
+    weights: costs_mod.CostWeights = costs_mod.CostWeights()
+    # Dense-tier LSE backend; the dense tier is not ported yet.
+    lse_impl: str = "auto"
+    # Implied-load histogram: auto | scatter (index_add_).
+    load_impl: str = "auto"
+    noise_impl: str = "hash"
+    final_select: str = "exact"
+    # Sparse top-K candidate width: > 0 (and < M) solves sparse.
+    topk: int = 0
+    # Sparse per-iteration selection width: 0 = MAX_COPIES.
+    sel_width: int = 0
+    # Cost-matrix dtype. The CUDA kernels take bf16 (the production
+    # dtype); f32 runs only through the plain versions, on CPU tensors.
+    dtype: torch.dtype = torch.bfloat16
+    # Let the dispatch layer swap dense-default knobs for the sparse-tier
+    # defaults when it routes sparse.
+    tier_defaults: bool = True
+    # Sparse kernels: auto (CUDA kernels for CUDA tensors, their plain
+    # PyTorch versions for CPU tensors) | cuda (CUDA tensors required).
+    sparse_impl: str = "auto"
+
+
+class Placement(NamedTuple):
+    """Integral global placement plan (device tensors)."""
+
+    indices: torch.Tensor   # i64[N, MAX_COPIES]
+    valid: torch.Tensor     # bool[N, MAX_COPIES]
+    load: torch.Tensor      # f32[M]
+    overflow: torch.Tensor  # f32[]
+    row_err: torch.Tensor   # f32[] sinkhorn marginal diagnostic
+    f: torch.Tensor | None = None       # f32[N] row potentials
+    g: torch.Tensor | None = None       # f32[M] column potentials
+    prices: torch.Tensor | None = None  # f32[M] warm-start prices
+    # Iterations each stage ran (host ints: the gates ran on the host).
+    sinkhorn_iters_run: int | None = None
+    auction_iters_run: int | None = None
+
+
+class SolveInit(NamedTuple):
+    """Warm-start carry from a previous solve, column-aligned to the
+    current problem: Sinkhorn column potentials and auction prices."""
+
+    g0: torch.Tensor                  # f32[M]
+    price0: torch.Tensor | None = None  # f32[M] (None = cold prices)
+
+
+def solve_placement(
+    problem: costs_mod.PlacementProblem,
+    config: SolveConfig = SolveConfig(),
+    seed: int = 0x5EED,
+    init: SolveInit | None = None,
+):
+    """Solve one global placement on the problem's device. ``seed`` varies
+    the rounding draw per solve; ``init`` warm-starts the Sinkhorn
+    potentials and (with ``init.price0``) the auction prices."""
+    if config.topk > 0 and config.topk < problem.num_instances:
+        return solve_sparse(problem, config, seed, init)
+    raise NotImplementedError("dense tier: ROADMAP queue 1")

@@ -1,0 +1,370 @@
+"""Sparse top-K placement solve.
+
+Port of ``modelmesh_tpu/ops/sparse.py`` (the design notes are there):
+
+1. ``topk_candidates``: one pass over the assembled cost gathers each
+   model's K cheapest instances by a noisy selection key, and keeps the
+   row's K-th key as the threshold that defines the candidate mask.
+2. ``sparse_sinkhorn``: scaled-kernel Sinkhorn over the masked candidate
+   set, always through the fused kernels of ``cuda_sparse`` — the mask and
+   the scaled kernel are recomputed from C, the thresholds and the row hash
+   state on every pass and never materialized.
+3. ``sparse_auction``: price repair over the fixed gathered candidates.
+
+Rounding noise is the positional hash-Gumbel draw, a pure function of
+(row, col, seed), so the gathered and full-width evaluations agree.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from modelmesh_tpu_torch import device as device_mod
+from modelmesh_tpu_torch.ops import costs as costs_mod
+from modelmesh_tpu_torch.ops import cuda_sparse
+from modelmesh_tpu_torch.ops.auction import (
+    MAX_COPIES,
+    RESHORTLIST_EVERY,
+    _NEG_INF,
+    _implied_load,
+    _stall_gated_rounds,
+    check_rounding_config,
+    hash_gumbel_at,
+    price_step,
+    select_from_candidates,
+    warm_probe,
+)
+from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, gated_sinkhorn_loop
+
+# Gumbel scale for the candidate-selection draw (cost units), and the salt
+# that makes it independent of the rounding noise at the same counter.
+GATHER_TAU: float = 0.5
+_GATHER_SALT = 0x9E3779B9
+
+# Numerical floor shared by the scaled-kernel iterations.
+_TINY = 1e-30
+
+
+class FusedGather(NamedTuple):
+    """What the fused kernels need to recompute the candidate mask: the
+    row's K-th selection key and the row-side hash state of the draw."""
+
+    thresh: torch.Tensor  # f32[N] K-th (tie-inclusive) selection key
+    x_row: torch.Tensor   # i32[N] row-side hash state (uint32 bits)
+    tau: float
+    noised: bool
+
+
+def resolve_sparse_impl(sparse_impl: str, device: torch.device) -> str:
+    """Validate the kernel backend and name the one that runs: "cuda" for
+    CUDA tensors, "plain" (the kernels' PyTorch versions) for CPU tensors.
+    An explicit "cuda" on CPU tensors raises instead of running plain."""
+    if sparse_impl not in ("auto", "cuda"):
+        raise ValueError(f"sparse_impl={sparse_impl!r} (expected auto | cuda)")
+    if torch.device(device).type == "cuda":
+        return "cuda"
+    if sparse_impl == "cuda":
+        raise ValueError("sparse_impl='cuda' needs the problem on a CUDA device")
+    return "plain"
+
+
+def topk_candidates(
+    C: torch.Tensor,
+    feasible: torch.Tensor,
+    k: int,
+    seed: int | None = None,
+):
+    """Gather each row's K cheapest instances from the assembled cost.
+
+    Returns ``(cost_k, idx_k, feas_k, fused)``: costs in C's dtype, i64
+    column ids, the gathered feasibility, and the ``FusedGather`` whose
+    ``thresh`` is the row's K-th selection key — the candidate mask is
+    every entry whose key is at or under it (a tie-inclusive superset of
+    the gathered columns). Selection is by noisy cost (GATHER_TAU Gumbel
+    at a salted counter; ``seed=None`` disables it); the INFEASIBLE
+    penalty drowns the noise, so feasible candidates always sort first.
+    """
+    k = min(k, C.shape[1])
+    noised = seed is not None
+    salted = 0 if seed is None else (int(seed) ^ _GATHER_SALT) & 0xFFFFFFFF
+    x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device)
+    key = cuda_sparse.selection_key(C, x_row, tau=GATHER_TAU, noised=noised)
+    neg_vals, idx = torch.topk(-key, k, dim=1)
+    # K-th selection key via a min over the descending values, as the
+    # reference takes it.
+    kth = -neg_vals.amin(dim=1)
+    fused = FusedGather(thresh=kth, x_row=x_row, tau=GATHER_TAU, noised=noised)
+    return (
+        torch.gather(C, 1, idx),
+        idx,
+        torch.gather(feasible, 1, idx),
+        fused,
+    )
+
+
+def sparse_sinkhorn(
+    C: torch.Tensor,            # [N, M] assembled cost (bf16 ok)
+    fused: FusedGather,
+    row_mass: torch.Tensor,     # f32[N]
+    col_mass: torch.Tensor,     # f32[M] full-width capacity caps
+    *,
+    eps: float,
+    iters: int,
+    g0: torch.Tensor | None = None,
+    tol: float = 0.0,
+    chunk: int = 4,
+) -> SinkhornResult:
+    """Semi-unbalanced Sinkhorn over the masked candidate set (rows are
+    equalities, columns caps via g <= 0). Each iteration is
+
+        v = exp(g / eps);  r = P @ v
+        f = eps * (log a - log r) + rowmin
+        u = a / r
+        g = min(0, eps * (log b - log(u @ P)))
+
+    with ``P = exp((rowmin - C) / eps) * mask`` applied by the fused
+    kernels, never built.
+    """
+    row_mass = row_mass.to(torch.float32)
+    col_mass = col_mass.to(torch.float32)
+    log_a = torch.log(torch.clamp_min(row_mass, _TINY))
+    log_b = torch.log(torch.clamp_min(col_mass, _TINY))
+    mask_args = dict(tau=fused.tau, noised=fused.noised)
+    rowmin = cuda_sparse.masked_row_min(
+        C, fused.thresh, fused.x_row, **mask_args
+    )
+
+    def row_terms(g):
+        v = torch.exp(g / eps)
+        r = cuda_sparse.masked_row_matvec(
+            C, fused.thresh, fused.x_row, rowmin, v, eps=eps, **mask_args
+        )
+        return torch.clamp_min(r, _TINY)
+
+    def run_iters(f, g, length):
+        for _ in range(length):
+            r = row_terms(g)
+            f = eps * (log_a - torch.log(r)) + rowmin
+            u = row_mass / r                       # exp((f - rowmin) / eps)
+            c = cuda_sparse.masked_col_matvec(
+                C, fused.thresh, fused.x_row, rowmin, u, eps=eps, **mask_args
+            )
+            g = torch.clamp_max(
+                eps * (log_b - torch.log(torch.clamp_min(c, _TINY))), 0.0
+            )
+        return f, g
+
+    def marginal_err(f, g):
+        row_sum = torch.exp((f - rowmin) / eps) * row_terms(g)
+        num = (row_sum - row_mass).abs().sum()
+        return num / torch.clamp_min(row_mass.sum(), _TINY)
+
+    f_init = torch.zeros_like(log_a)
+    g_init = (
+        torch.clamp_max(g0.to(torch.float32), 0.0)  # g <= 0 invariant
+        if g0 is not None else torch.zeros_like(log_b)
+    )
+    if tol <= 0.0 or chunk <= 0 or iters <= 0:
+        f, g = run_iters(f_init, g_init, iters)
+        return SinkhornResult(
+            f=f, g=g, row_err=marginal_err(f, g), iters_run=iters
+        )
+    f, g, row_err, iters_run = gated_sinkhorn_loop(
+        run_iters, marginal_err, f_init, g_init,
+        eps=eps, iters=iters, tol=tol, chunk=chunk,
+    )
+    return SinkhornResult(f=f, g=g, row_err=row_err, iters_run=iters_run)
+
+
+def sparse_auction(
+    scores_k: torch.Tensor,   # f32[N, K] noised+masked plan logits (gathered)
+    idx_k: torch.Tensor,      # i64[N, K]
+    sizes: torch.Tensor,      # f32[N]
+    copies: torch.Tensor,     # i32[N]
+    capacity: torch.Tensor,   # f32[M] full-width caps
+    *,
+    iters: int,
+    eta: float,
+    final_select: str = "exact",
+    stall_tol: float = 0.0,
+    price0: torch.Tensor | None = None,
+    sel_k: int = MAX_COPIES,
+):
+    """Price repair over a fixed candidate set, with the reference's
+    best-iterate tracking, warm probe and stall gates. Returns
+    ``(idx, valid, load, prices, overflow, iters_run)``; ``iters_run`` is
+    a host int."""
+    num_instances = capacity.shape[0]
+    cap = torch.clamp_min(capacity.to(torch.float32), 1e-6)
+    copies = torch.clamp_max(copies, MAX_COPIES)
+    n = scores_k.shape[0]
+    nsel = min(sel_k, MAX_COPIES)
+
+    def implied_load(idx, valid):
+        # Slots past sel_k are padding (never valid): skip them.
+        return _implied_load(
+            idx[:, :nsel], valid[:, :nsel], sizes, num_instances
+        )
+
+    def select(price):
+        return select_from_candidates(scores_k, idx_k, copies, price, nsel)
+
+    def overflow(load):
+        return torch.clamp_min(load - cap, 0.0).sum()
+
+    def narrow_round(carry, length):
+        price, bp, bi, bv, bl, bo = carry
+        for _ in range(length):
+            idx, valid = select(price)
+            load = implied_load(idx, valid)
+            of = overflow(load)
+            better = of < bo
+            # Best-iterate selection prices are the warm-start carry.
+            bp = torch.where(better, price, bp)
+            bi = torch.where(better, idx, bi)
+            bv = torch.where(better, valid, bv)
+            bl = torch.where(better, load, bl)
+            bo = torch.minimum(of, bo)
+            price = price_step(load, cap, price, eta)
+        return price, bp, bi, bv, bl, bo
+
+    p_init = (
+        torch.clamp_min(price0.to(torch.float32), 0.0)  # price >= 0 invariant
+        if price0 is not None
+        else torch.zeros(num_instances, dtype=torch.float32,
+                         device=capacity.device)
+    )
+
+    def epilogue(carry, iters_run):
+        price, best_price, best_idx, best_valid, best_load, best_of = carry
+        if final_select == "none":
+            return (best_idx, best_valid, best_load, best_price, best_of,
+                    iters_run)
+        idx_l, valid_l = select(price)
+        load_l = implied_load(idx_l, valid_l)
+        of_l = overflow(load_l)
+        use_last = of_l <= best_of
+        return (
+            torch.where(use_last, idx_l, best_idx),
+            torch.where(use_last, valid_l, best_valid),
+            torch.where(use_last, load_l, best_load),
+            torch.where(use_last, price, best_price),
+            torch.minimum(of_l, best_of),
+            iters_run,
+        )
+
+    dev = capacity.device
+    carry = (
+        p_init,
+        p_init,
+        torch.zeros((n, MAX_COPIES), dtype=idx_k.dtype, device=dev),
+        torch.zeros((n, MAX_COPIES), dtype=torch.bool, device=dev),
+        torch.zeros(num_instances, dtype=torch.float32, device=dev),
+        torch.tensor(torch.inf, dtype=torch.float32, device=dev),
+    )
+    if stall_tol <= 0.0:
+        for length in [RESHORTLIST_EVERY] * (iters // RESHORTLIST_EVERY) + (
+            [iters % RESHORTLIST_EVERY] if iters % RESHORTLIST_EVERY else []
+        ):
+            carry = narrow_round(carry, length)
+        return epilogue(carry, iters)
+
+    total_demand = (sizes * copies.to(torch.float32)).sum()
+    if final_select == "none":
+        carry2, iters_run = _stall_gated_rounds(
+            narrow_round, carry, iters, stall_tol, total_demand,
+        )
+        return epilogue(carry2, iters_run)
+
+    idx_p, valid_p, load_p, of_p, p_probe, probe_ok = warm_probe(
+        select, p_init, cap, implied_load, eta, stall_tol, total_demand,
+    )
+    if device_mod.item(probe_ok):
+        return idx_p, valid_p, load_p, p_probe, of_p, 1
+    seeded = (p_probe, p_init, idx_p, valid_p, load_p, of_p)
+    carry2, iters_run = _stall_gated_rounds(
+        narrow_round, seeded, iters, stall_tol, total_demand,
+    )
+    return epilogue(carry2, iters_run + 1)
+
+
+def check_sparse_config(config) -> None:
+    """Validation of the config knobs the sparse solve reads."""
+    check_rounding_config(
+        config.noise_impl, config.final_select, config.auction_iters
+    )
+    if config.tau > 0 and config.noise_impl != "hash":
+        raise ValueError(
+            "sparse solve requires noise_impl='hash' "
+            f"(got {config.noise_impl!r})"
+        )
+    if config.sel_width and not 0 < config.sel_width <= MAX_COPIES:
+        raise ValueError(
+            f"sel_width={config.sel_width} (expected 1..{MAX_COPIES}, "
+            "or 0 for the MAX_COPIES default)"
+        )
+    # The implied-load histogram is a scatter-add here; the reference's
+    # "fused" compare-reduce exists only for the TPU's serialized scatter.
+    if config.load_impl not in ("auto", "scatter"):
+        raise ValueError(
+            f"load_impl={config.load_impl!r} (expected auto | scatter)"
+        )
+
+
+def perturb_gathered(
+    logits_k: torch.Tensor, idx_k: torch.Tensor, feas_k: torch.Tensor,
+    tau: float, seed: int,
+) -> torch.Tensor:
+    """Noise + feasibility mask for gathered plan logits."""
+    scores = logits_k.to(torch.float32)
+    if tau > 0:
+        rows = torch.arange(idx_k.shape[0], device=idx_k.device)[:, None]
+        scores = scores + tau * hash_gumbel_at(rows, idx_k, seed)
+    return torch.where(feas_k, scores, _NEG_INF)
+
+
+def solve_sparse(problem, config, seed: int, init):
+    """Cost -> top-K gather -> sparse Sinkhorn -> sparse auction, on the
+    problem's device. Returns the same ``Placement`` as the reference
+    (f/g/prices full-width, so warm carries work unchanged)."""
+    from modelmesh_tpu_torch.ops.solve import Placement
+
+    check_sparse_config(config)
+    seed = int(seed) & 0xFFFFFFFF
+    C = costs_mod.assemble_cost(
+        problem, weights=config.weights, dtype=config.dtype
+    )
+    resolve_sparse_impl(config.sparse_impl, C.device)
+    cost_k, idx_k, feas_k, fused = topk_candidates(
+        C, problem.feasible, config.topk, seed=seed
+    )
+    copies = torch.clamp_max(problem.copies, MAX_COPIES)
+    row_mass = problem.sizes * copies.to(torch.float32)
+    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+    sk = sparse_sinkhorn(
+        C, fused, row_mass, free,
+        eps=config.eps, iters=config.sinkhorn_iters,
+        g0=None if init is None else init.g0,
+        tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
+    )
+    # Per-element arithmetic and the dtype quantization match the
+    # reference's gathered plan logits.
+    logits_k = (
+        (sk.f[:, None] + sk.g[idx_k] - cost_k.to(torch.float32)) / config.eps
+    ).to(config.dtype)
+    scores_k = perturb_gathered(logits_k, idx_k, feas_k, config.tau, seed)
+    idx, valid, load, prices, overflow, au_iters = sparse_auction(
+        scores_k, idx_k, problem.sizes, copies, free,
+        iters=config.auction_iters, eta=config.eta,
+        final_select=config.final_select,
+        stall_tol=config.auction_stall_tol,
+        price0=None if init is None else init.price0,
+        sel_k=config.sel_width or MAX_COPIES,
+    )
+    return Placement(
+        indices=idx, valid=valid, load=load, overflow=overflow,
+        row_err=sk.row_err, f=sk.f, g=sk.g, prices=prices,
+        sinkhorn_iters_run=sk.iters_run, auction_iters_run=au_iters,
+    )

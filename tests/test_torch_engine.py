@@ -1,0 +1,272 @@
+"""The port's dispatch layer (modelmesh_tpu_torch/placement/torch_engine.py)
+against the JAX package's ``placement/jax_engine.py`` on the CPU.
+
+Both packages snapshot the same synthetic fleet (same numpy seed, both
+clocks pinned to one value) and the columns must be exactly equal; then
+the JAX snapshot is carried across (carry.columns_from_numpy), both run
+dispatch_solve + finalize_plan, and the per-model targets must agree.
+Also pinned: the device rule, the dispatch policy, the plan wire format
+and that a CPU solve never touches CUDA code.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from modelmesh_tpu.placement import jax_engine as je
+from modelmesh_tpu.placement.synthetic import synthetic_records as jax_records
+from modelmesh_tpu.records import InstanceRecord as JaxInstanceRecord
+from modelmesh_tpu_torch import device as device_mod
+from modelmesh_tpu_torch.carry import columns_from_numpy
+from modelmesh_tpu_torch.ops import _build, cuda_sparse
+from modelmesh_tpu_torch.ops.solve import SolveConfig
+from modelmesh_tpu_torch.placement import torch_engine as te
+from modelmesh_tpu_torch.placement.synthetic import synthetic_records
+from modelmesh_tpu_torch.records import InstanceRecord
+from modelmesh_tpu_torch.utils import envs
+
+NOW = 5_000_000
+N, M = 1500, 150          # pads to 1536 x 192: the sparse auto floor
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and
+    PyTorch's default of one thread per core would oversubscribe them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+class _Constraints:
+    """Duck-typed type constraints: odd types avoid instances labelled
+    'small'; even types prefer instances labelled 'fast'."""
+
+    def is_candidate(self, mtype, labels):
+        return not (int(mtype[1:]) % 2 and "small" in labels)
+
+    def is_preferred(self, mtype, labels):
+        return int(mtype[1:]) % 2 == 1 or "fast" in labels
+
+
+def _fleet(make, inst_cls, n=N, m=M):
+    models, instances = make(n, m)
+    demand = sum(mr.size_units for _, mr in models)
+    cap = max(1, round(demand / (0.85 * m)))
+    for j, (_, rec) in enumerate(instances):
+        rec.capacity_units = cap
+        rec.labels = ["small"] if j % 5 == 0 else (["fast"] if j % 3 else [])
+    instances[7][1].shutting_down = True
+    instances[11][1].disabled = True
+    rpm = {f"m{i}": int(v) for i, v in
+           enumerate(np.random.default_rng(0).integers(0, 50, n))}
+    assert isinstance(instances[0][1], inst_cls)
+    return models, instances, rpm
+
+
+@pytest.fixture
+def pinned_clock(monkeypatch):
+    monkeypatch.setattr(je, "now_ms", lambda: NOW)
+    monkeypatch.setattr(te, "now_ms", lambda: NOW)
+
+
+@pytest.fixture
+def snapshots(pinned_clock):
+    jm, ji, rpm = _fleet(jax_records, JaxInstanceRecord)
+    tm, ti, _ = _fleet(synthetic_records, InstanceRecord)
+    c = _Constraints()
+    return (je.snapshot_columns(jm, ji, rpm, constraints=c),
+            te.snapshot_columns(tm, ti, rpm, constraints=c))
+
+
+def test_snapshot_columns_equal(snapshots):
+    jc, tc = snapshots
+    assert te.ProblemColumns._fields == je.ProblemColumns._fields
+    for name in je.ProblemColumns._fields:
+        a, b = getattr(jc, name), getattr(tc, name)
+        if isinstance(a, list):
+            assert a == b, name
+        else:
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(b, a, err_msg=name)
+    assert not tc.placeable[7] and not tc.placeable[11]
+
+
+def test_expanded_problem_equals_reference(snapshots):
+    """The device expansion (bucket padding, COO scatter of the loaded
+    pairs, per-type mask gather) is exact."""
+    jc, _ = snapshots
+    jp = je._expand_problem_device(jc, pad=True)
+    tp = te._expand_problem_device(columns_from_numpy(jc), "cpu")
+    for name in tp.__dataclass_fields__:
+        np.testing.assert_array_equal(
+            getattr(tp, name).numpy(), np.asarray(getattr(jp, name)),
+            err_msg=name,
+        )
+    assert tp.loaded.sum() == len(jc.loaded_rows)
+
+
+def test_dispatch_finalize_matches_reference(snapshots):
+    jc, _ = snapshots
+    jplan = je.finalize_plan(je.dispatch_solve(jc, seed=3))
+    tplan = te.finalize_plan(
+        te.dispatch_solve(columns_from_numpy(jc), seed=3, device="cpu")
+    )
+    assert tplan.stats["solver_path"] == "sparse"
+    assert tplan.stats["sparse_impl"] == "plain"
+    assert tplan.stats["topk"] == jplan.stats["topk"] == 24
+    agree = np.mean([jplan.lookup(mid) == tplan.lookup(mid)
+                     for mid in jc.model_ids])
+    assert agree >= 0.97, agree
+    for key in ("sinkhorn_iters_run", "auction_iters_run"):
+        assert tplan.stats[key] == jplan.stats[key]
+    assert tplan.stats["host_syncs"] >= 2       # at least the two readbacks
+    assert tplan.warm_g.keys() == jplan.warm_g.keys()
+    np.testing.assert_allclose(
+        [tplan.warm_g[i] for i in jc.instance_ids],
+        [jplan.warm_g[i] for i in jc.instance_ids], atol=1e-3,
+    )
+
+
+def test_warm_dispatch_matches_reference(snapshots):
+    jc, _ = snapshots
+    cold = je.finalize_plan(je.dispatch_solve(jc, seed=3))
+    jplan = je.finalize_plan(je.dispatch_solve(
+        jc, seed=4, warm_g=cold.warm_g, warm_price=cold.warm_price))
+    tplan = te.finalize_plan(te.dispatch_solve(
+        columns_from_numpy(jc), seed=4, warm_g=cold.warm_g,
+        warm_price=cold.warm_price, device="cpu"))
+    assert tplan.stats["warm"] is True
+    agree = np.mean([jplan.lookup(mid) == tplan.lookup(mid)
+                     for mid in jc.model_ids])
+    assert agree >= 0.97, agree
+
+
+def test_cpu_dispatch_calls_no_cuda_code(snapshots, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("CUDA code reached on a CPU solve")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    cuda_sparse.reset_launches()
+    plan = te.finalize_plan(te.dispatch_solve(snapshots[1], device="cpu"))
+    assert plan.num_models() == N
+    assert all(v == 0 for v in cuda_sparse.launches.values())
+
+
+def test_default_device_without_cuda_raises(snapshots, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.dispatch_solve(snapshots[1])
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mesh=object()), dict(donate=True), dict(base=object(),
+                                                 dirty_rows=[0]),
+])
+def test_unported_dispatch_options_raise(snapshots, kw):
+    with pytest.raises(NotImplementedError):
+        te.dispatch_solve(snapshots[1], device="cpu", **kw)
+
+
+def test_dense_routed_fleet_raises(pinned_clock):
+    models, instances, rpm = _fleet(synthetic_records, InstanceRecord,
+                                    n=300, m=40)
+    cols = te.snapshot_columns(models, instances, rpm)
+    with pytest.raises(NotImplementedError, match="dense tier"):
+        te.dispatch_solve(cols, device="cpu")
+
+
+def test_solve_plan_end_to_end(pinned_clock):
+    models, instances, rpm = _fleet(synthetic_records, InstanceRecord,
+                                    n=600, m=150)
+    plan = te.solve_plan(models, instances, rpm, seed=1, device="cpu")
+    assert plan.num_models() == 600
+    ids = {iid for iid, _ in instances}
+    for mid, _ in models[:50]:
+        targets = plan.lookup(mid)
+        assert targets and set(targets) <= ids
+    assert te.solve_plan([], instances, device="cpu").num_models() == 0
+
+
+def test_bucket_matches_reference():
+    for x in list(range(0, 2100, 7)) + [100_000, 131_072, 131_073]:
+        assert te._bucket(x) == je._bucket(x)
+        assert te._bucket(x, 64) == je._bucket(x, 64)
+
+
+@pytest.mark.parametrize("env,config,m_pad,max_copies", [
+    ({}, None, 1024, 3),
+    ({}, None, 128, 2),
+    ({"MM_SOLVER_SPARSE": "0"}, None, 1024, 2),
+    ({"MM_SOLVER_SPARSE": "1"}, None, 128, 8),
+    ({"MM_SOLVER_TOPK": "32"}, None, 1024, 5),
+    ({"MM_SOLVER_AUCTION_ITERS": "12"}, None, 1024, 1),
+    ({}, dict(tier_defaults=False), 1024, 2),
+    ({}, dict(topk=16, tau=0.0), 1024, 4),
+    ({}, dict(noise_impl="threefry"), 1024, 4),
+])
+def test_resolve_sparse_config_matches_reference(monkeypatch, env, config,
+                                                 m_pad, max_copies):
+    from modelmesh_tpu.ops.solve import SolveConfig as JaxConfig
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jcfg = None if config is None else JaxConfig(**config)
+    tcfg = None if config is None else SolveConfig(**config)
+    jres, jsparse = je._resolve_sparse_config(jcfg, m_pad, max_copies)
+    tres, tsparse = te._resolve_sparse_config(tcfg, m_pad, max_copies)
+    assert tsparse == jsparse
+    assert (tres is None) == (jres is None)
+    if tres is not None:
+        for name in ("topk", "sel_width", "auction_iters",
+                     "auction_stall_tol", "sinkhorn_tol"):
+            assert getattr(tres, name) == getattr(jres, name), name
+
+
+def test_solve_config_from_env(monkeypatch):
+    assert te.solve_config_from_env() == SolveConfig()
+    monkeypatch.setenv("MM_SOLVER_SINKHORN_ITERS", "7")
+    monkeypatch.setenv("MM_SOLVER_TAU", "0.5")
+    monkeypatch.setenv("MM_SOLVER_SPARSE_IMPL", "cuda")
+    cfg = te.solve_config_from_env()
+    assert (cfg.sinkhorn_iters, cfg.tau, cfg.sparse_impl) == (7, 0.5, "cuda")
+    with pytest.raises(KeyError):
+        envs.get("MM_NOT_A_KNOB")
+    monkeypatch.setenv("MM_SOLVER_TOPK", "32")
+    assert envs.get_int("MM_SOLVER_TOPK") == 32
+
+
+def test_plan_wire_format_crosses_packages(snapshots):
+    jc, _ = snapshots
+    plan = te.finalize_plan(
+        te.dispatch_solve(columns_from_numpy(jc), seed=3, device="cpu")
+    )
+    theirs = je.GlobalPlan.from_bytes(plan.to_bytes())
+    ours = te.GlobalPlan.from_bytes(theirs.to_bytes())
+    for mid in jc.model_ids:
+        assert theirs.lookup(mid) == plan.lookup(mid) == ours.lookup(mid)
+    assert ours.placements == plan.placements
+
+
+def test_plan_json_fallback_roundtrip():
+    plan = te.GlobalPlan({"a\nb": ["i1"], "c": ["i2", "i3"]}, 1, 2.0, 3)
+    back = te.GlobalPlan.from_bytes(plan.to_bytes())
+    assert back.placements == plan.placements and back.generation == 3
+
+
+def test_synthetic_records_same_fleet():
+    jm, ji = jax_records(200, 30, seed=11)
+    tm, ti = synthetic_records(200, 30, seed=11)
+    for (jid, jr), (tid, tr) in zip(jm, tm):
+        assert (jid, jr.model_type, jr.size_units, jr.last_used,
+                jr.instance_ids, jr.copy_count) == (
+            tid, tr.model_type, tr.size_units, tr.last_used,
+            tr.instance_ids, tr.copy_count)
+    assert [(i, r.zone, r.req_per_minute) for i, r in ji] == [
+        (i, r.zone, r.req_per_minute) for i, r in ti]
