@@ -6,29 +6,48 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. build   — compile the CUDA kernels from ``modelmesh_tpu_torch/csrc``
-             (nvcc, sm_90a) and print the card's name and power limit.
-2. kernels — each kernel against its plain PyTorch version on the card at
-             the 100k x 1k tier's padded shape (C bf16[131072, 1024] from a
-             seed, thresholds from the port's top-K gather): rowmin bitwise,
-             the flat-integrand candidate counts exact, the matvecs at
-             rtol 1e-5 / atol 1e-6; median kernel time over 20 launches.
+             (nvcc, sm_90a, one process per source, all at once) and print
+             the card's name and power limit.
+2. kernels — each sparse kernel against its plain PyTorch version on the
+             card at the 100k x 1k tier's padded shape (C bf16[131072, 1024]
+             from a seed, thresholds from the port's top-K gather): rowmin
+             bitwise, the flat-integrand candidate counts exact, the
+             matvecs at rtol 1e-5 / atol 1e-6; median kernel time over 20
+             launches.
+   lse_kernels — the two LSE kernels against their plain versions at the
+             same shape (LSE and running max at atol 1e-4 / rtol 1e-5),
+             the extreme-value case (C and shift x 30: finite, rtol 1e-5),
+             median time over 20 launches, and torch.logsumexp over a
+             materialized z as the library yardstick.
 3. main    — the production dispatch at 100,000 models x 1,000 instances
              (synthetic fleet at 85% utilization): snapshot_columns ->
-             dispatch_solve -> finalize_plan, one warm-up then 5 solves with
-             varied seeds, kernel launch counters zeroed just before.
+             dispatch_solve -> finalize_plan on the sparse path, one warm-up
+             then 5 solves with varied seeds, kernel launch counters zeroed
+             just before.
    profile — one more main-path solve under torch.profiler: device time
              by kernel name and the device's idle share of the solve.
 4. parity  — one 20,000 x 256 snapshot solved on the card and on the CPU
              (plain versions): placement agreement >= 0.97 and overflow
              within 0.5% of demand.
+5. dense_main — the same 100k x 1k fleet on the dense tier (the
+             reference's "full Sinkhorn", pinned with MM_SOLVER_SPARSE=0
+             around the phase): one warm-up, 5 solves with the default
+             config, LSE launch counters zeroed just before; then one solve
+             with the steady gates, and the tie-stable top-k against
+             torch.sort / torch.topk at the auction's shortlist shape.
+   dense_profile — one dense solve under torch.profiler.
+6. dense_parity — a 10,000 x 128 snapshot, which the auto rule routes
+             dense, on the card and on the CPU, with phase 4's gates.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
 """
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -37,8 +56,10 @@ import numpy as np
 import torch
 
 from modelmesh_tpu_torch import device as device_mod
-from modelmesh_tpu_torch.ops import _build, cuda_sparse, sparse
-from modelmesh_tpu_torch.ops.auction import MAX_COPIES
+from modelmesh_tpu_torch.ops import (
+    _build, auction, cuda_lse, cuda_sparse, sparse,
+)
+from modelmesh_tpu_torch.ops.auction import K_CAND, MAX_COPIES
 from modelmesh_tpu_torch.placement.synthetic import synthetic_records
 from modelmesh_tpu_torch.placement.torch_engine import (
     dispatch_solve,
@@ -51,6 +72,7 @@ SEED = 20260
 TIER = (131072, 1024)          # _bucket(100_000) x _bucket(1_000, 64)
 MAIN_FLEET = (100_000, 1_000)
 PARITY_FLEET = (20_000, 256)
+DENSE_PARITY_FLEET = (10_000, 128)   # pads to 128 columns: auto routes dense
 STEADY_UTILIZATION = 0.85
 KERNEL_REPS = 20
 MAIN_SOLVES = 5
@@ -61,14 +83,20 @@ PEAK_F32_OPS_PER_S = 67e12
 # f32/int32 operations per cost-matrix element: the selection key (hash:
 # 10 integer ops; uniform, clamp, two logs, two negations, scale, subtract)
 # and the mask test, then the min, or the shifted exp and multiply-add.
+# The LSE kernels: subtract, divide, max, subtract, exp, add.
 OPS_PER_ELEMENT = {"masked_row_min": 20, "masked_row_matvec": 25,
-                   "masked_col_matvec": 25}
+                   "masked_col_matvec": 25, "row_lse_partial": 6,
+                   "col_lse_partial": 6}
 REPLACES = {
     "masked_row_min": "modelmesh_tpu/ops/pallas_sparse.py:196",
     "masked_row_matvec": "modelmesh_tpu/ops/pallas_sparse.py:226",
     "masked_col_matvec": "modelmesh_tpu/ops/pallas_sparse.py:260",
+    "row_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:130",
+    "col_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:167",
 }
-SOURCE = "modelmesh_tpu_torch/csrc/masked_sparse.cu"
+SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
+           "lse": "modelmesh_tpu_torch/csrc/lse.cu"}
+LSE_EPS = 0.05
 
 
 def emit(obj) -> None:
@@ -111,11 +139,26 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def bound(name: str, nbytes: int, elements: int, card: str) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    bytes_ms = nbytes / peak_bytes_per_s(card) * 1e3
+    ops_ms = OPS_PER_ELEMENT[name] * elements / PEAK_F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [ln.strip() for log in _build.build_log.values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    # Per library: each kernel's entry line, then its registers and spills.
+    ptxas = {
+        lib: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+              if "entry function" in ln or "registers" in ln
+              or "spill" in ln]
+        for lib, log in _build.build_log.items()
+    }
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "ptxas": ptxas})
 
@@ -180,19 +223,89 @@ def phase_kernels(dev, card: str) -> dict:
         if name != "masked_row_min":
             check(torch.allclose(got, ref, rtol=1e-5, atol=1e-6),
                   f"{name} differs from its plain version (max abs {err})")
-        bytes_ms = nbytes / peak_bytes_per_s(card) * 1e3
-        ops_ms = OPS_PER_ELEMENT[name] * n * m / PEAK_F32_OPS_PER_S * 1e3
         results[name] = {
             "max_abs_err": err,
             "ms": time_ms(kernel, KERNEL_REPS),
             "plain_ms": time_ms(plain, 5),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes,
+            "library_ms": None,
+            **bound(name, nbytes, n * m, card),
         }
     emit({"phase": "kernels", "shape": [n, m], "card": card,
           "counting_exact": True, **results})
     del C, feasible, fz
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_lse_kernels(dev, card: str) -> dict:
+    """Kernels 4-5 against their plain versions at the tier's shape."""
+    n, m = TIER
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    C = (torch.randn((n, m), generator=gen, device=dev) * 3.0).to(
+        torch.bfloat16
+    )
+    g = torch.randn(m, generator=gen, device=dev)
+    f = torch.randn(n, generator=gen, device=dev)
+    tol = dict(atol=1e-4, rtol=1e-5)
+    cases = {
+        "row_lse_partial": (cuda_lse.row_lse_partial,
+                            cuda_lse.row_lse_partial_ref, g, 1,
+                            lambda sh: sh[None, :]),
+        "col_lse_partial": (cuda_lse.col_lse_partial,
+                            cuda_lse.col_lse_partial_ref, f, 0,
+                            lambda sh: sh[:, None]),
+    }
+    # The unvectorized paths: an odd width (no 16-byte or bf16x2 loads) and
+    # a ragged last row chunk.
+    Cr = C[:1000, :1001].contiguous()
+    for name, (kernel, plain, shift, axis, _) in cases.items():
+        sr = shift[:1001] if axis == 1 else shift[:1000]
+        got = cuda_lse.lse_of(*kernel(Cr, sr, LSE_EPS))
+        want = cuda_lse.lse_of(*plain(Cr, sr, LSE_EPS))
+        check(torch.allclose(got, want, **tol),
+              f"{name}: ragged [1000, 1001] LSE differs "
+              f"(max abs {float((got - want).abs().max().item())})")
+    del Cr
+    results = {}
+    for name, (kernel, plain, shift, axis, bcast) in cases.items():
+        (km, ks), (pm, ps) = kernel(C, shift, LSE_EPS), plain(C, shift, LSE_EPS)
+        lse, lse_ref = cuda_lse.lse_of(km, ks), cuda_lse.lse_of(pm, ps)
+        err = float((lse - lse_ref).abs().max().item())
+        check(torch.allclose(lse, lse_ref, **tol),
+              f"{name}: LSE differs from the plain version (max abs {err})")
+        check(torch.allclose(km, pm, **tol), f"{name}: running max differs")
+        # Extreme values: |z| of order 1e3 and more.
+        Cx = (C.to(torch.float32) * 30.0).to(torch.bfloat16)
+        xk = cuda_lse.lse_of(*kernel(Cx, shift * 30.0, LSE_EPS))
+        xp = cuda_lse.lse_of(*plain(Cx, shift * 30.0, LSE_EPS))
+        check(bool(torch.isfinite(xk).all()), f"{name}: extreme LSE not finite")
+        check(torch.allclose(xk, xp, rtol=1e-5, atol=0.0),
+              f"{name}: extreme LSE differs "
+              f"(max abs {float((xk - xp).abs().max().item())})")
+        del Cx, xk, xp
+        # Library yardstick: torch.logsumexp over a materialized f32 z.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        z = (bcast(shift) - C.to(torch.float32)) / LSE_EPS
+        torch.cuda.synchronize()
+        z_build_ms = (time.perf_counter() - t) * 1e3
+        library_ms = time_ms(lambda: torch.logsumexp(z, dim=axis), KERNEL_REPS)
+        lib_err = float((torch.logsumexp(z, dim=axis) - lse).abs().max().item())
+        del z
+        out_len = n if axis == 1 else m
+        results[name] = {
+            "max_abs_err": err,
+            "max_abs_err_vs_library": lib_err,
+            "ms": time_ms(lambda: kernel(C, shift, LSE_EPS), KERNEL_REPS),
+            "plain_ms": time_ms(lambda: plain(C, shift, LSE_EPS), 5),
+            "library_ms": library_ms,
+            "library_z_build_ms": z_build_ms,
+            **bound(name, n * m * 2 + shift.numel() * 4 + 2 * out_len * 4,
+                    n * m, card),
+        }
+    emit({"phase": "lse_kernels", "shape": [n, m], "eps": LSE_EPS,
+          "card": card, "ragged_shape_checked": [1000, 1001], **results})
+    del C
     torch.cuda.empty_cache()
     return results
 
@@ -279,10 +392,10 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
     return result
 
 
-def phase_profile(dev, cols) -> None:
-    """Where one main-path solve's time goes: torch.profiler over one
-    dispatch + finalize, device time by kernel name and the device's busy
-    share of the solve's wall time."""
+def phase_profile(dev, cols, phase: str = "profile") -> None:
+    """Where one solve's time goes: torch.profiler over one dispatch +
+    finalize, device time by kernel name and the device's busy share of
+    the solve's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = solve_config_from_env()
@@ -306,30 +419,194 @@ def phase_profile(dev, cols) -> None:
         slot[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    emit({"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
           "device_idle_share": 1.0 - busy_ms / wall_ms,
           "top": [{"name": k, "ms": ms, "count": c}
                   for k, (ms, c) in top]})
 
 
-def phase_parity(dev) -> None:
-    cols = steady_fleet(*PARITY_FLEET)
+def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
+                 path: str = "sparse") -> None:
+    cols = steady_fleet(*fleet)
     cfg = solve_config_from_env()
-    gpu = dispatch_solve(cols, seed=5, config=cfg, device=dev).sol
-    cpu = dispatch_solve(cols, seed=5, config=cfg, device="cpu").sol
+    gpu_run = dispatch_solve(cols, seed=5, config=cfg, device=dev)
+    cpu_run = dispatch_solve(cols, seed=5, config=cfg, device="cpu")
+    check(gpu_run.path == cpu_run.path == path,
+          f"{phase}: paths {gpu_run.path}/{cpu_run.path}, want {path}")
+    check((gpu_run.impl, cpu_run.impl) == ("cuda", "plain"),
+          f"{phase}: backends {gpu_run.impl}/{cpu_run.impl}")
+    gpu, cpu = gpu_run.sol, cpu_run.sol
     gv, gi = gpu.valid.cpu().numpy(), gpu.indices.cpu().numpy()
     cv, ci = cpu.valid.numpy(), cpu.indices.numpy()
     same = gv == cv
     agree = float(((same & (gi == ci)) | (same & ~cv)).mean())
     demand = demand_of(cols)
     d_over = abs(float(gpu.overflow.item()) - float(cpu.overflow.item()))
-    emit({"phase": "parity", "models": PARITY_FLEET[0],
-          "instances": PARITY_FLEET[1], "agreement": agree,
+    emit({"phase": phase, "models": fleet[0], "instances": fleet[1],
+          "solver_path": path, "agreement": agree,
           "overflow_gpu": float(gpu.overflow.item()),
           "overflow_cpu": float(cpu.overflow.item()),
           "overflow_diff_frac": d_over / demand})
     check(agree >= 0.97, f"GPU/CPU placement agreement {agree}")
     check(d_over <= 0.005 * demand, f"overflow differs by {d_over}")
+
+
+@contextlib.contextmanager
+def dense_pin():
+    """MM_SOLVER_SPARSE=0 for the duration, restored after (bench.py's
+    run_path pin)."""
+    prev = os.environ.get("MM_SOLVER_SPARSE")
+    os.environ["MM_SOLVER_SPARSE"] = "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("MM_SOLVER_SPARSE", None)
+        else:
+            os.environ["MM_SOLVER_SPARSE"] = prev
+
+
+def packed_key_top_k(x, k: int):
+    """The other tie-stable top-k: torch.topk over an int64 key that packs
+    the value's order-preserving bits above the reversed column index (no
+    two keys tie). Timed here as the alternative to the port's stable
+    sort; the port does not use it."""
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits).to(torch.int64)
+    rev = torch.arange(x.shape[1] - 1, -1, -1, device=x.device)
+    key.mul_(1 << 32).add_(rev)
+    idx = torch.topk(key, k, dim=1).indices
+    return torch.gather(x, 1, idx), idx
+
+
+def time_top_k(dev) -> dict:
+    """The auction's tie-stable top-k (a stable descending sort, cut) at
+    its shortlist shape against the packed-key top-k and torch.topk
+    (fast, but in no fixed tie order), on bf16-rounded scores (many
+    ties)."""
+    n, m = TIER
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = (torch.randn((n, m), generator=gen, device=dev) * 4.0).to(
+        torch.bfloat16).to(torch.float32)
+    _, idx = auction.top_k(x, K_CAND)
+    check(torch.equal(idx, packed_key_top_k(x, K_CAND)[1]),
+          "top_k differs from the packed-key top-k")
+    out = {
+        "shape": [n, m], "k": K_CAND,
+        "stable_sort_top_k_ms": time_ms(lambda: auction.top_k(x, K_CAND), 5),
+        "packed_key_topk_ms": time_ms(lambda: packed_key_top_k(x, K_CAND), 5),
+        "torch_topk_ms": time_ms(lambda: torch.topk(x, K_CAND, dim=1), 5),
+    }
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_main(dev, cols) -> dict:
+    cfg = solve_config_from_env()
+
+    def one_solve(seed, config=cfg):
+        return finalize_plan(
+            dispatch_solve(cols, seed=seed, config=config, device=dev)
+        )
+
+    one_solve(2_000_000)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lse.reset_launches()
+    cuda_sparse.reset_launches()
+    syncs0 = device_mod.host_syncs
+    times, stats = [], []
+    for rep in range(MAIN_SOLVES):
+        t = time.perf_counter()
+        plan = one_solve(100 + rep)
+        times.append((time.perf_counter() - t) * 1e3)
+        stats.append(plan.stats)
+    launches = dict(cuda_lse.launches)
+    sparse_launches = dict(cuda_sparse.launches)
+    syncs = device_mod.host_syncs - syncs0
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+
+    demand = demand_of(cols)
+    for st in stats:
+        check(st["solver_path"] == "dense", f"path {st['solver_path']}")
+        check(st["lse_impl"] == "cuda", f"lse_impl {st.get('lse_impl')}")
+        check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
+              "overflow not finite")
+        check(math.isfinite(st["row_err"]), "row_err not finite")
+    # Fixed budget: one row and one column LSE per iteration, plus the
+    # row LSE of the final marginal error.
+    iters = cfg.sinkhorn_iters
+    want = {"row_lse_partial": iters + 1, "col_lse_partial": iters}
+    per_solve = {k: c / MAIN_SOLVES for k, c in launches.items()}
+    if cfg.sinkhorn_tol <= 0:
+        check(per_solve == want, f"LSE launches per solve {per_solve}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the dense path")
+    check(all(c == 0 for c in sparse_launches.values()),
+          f"sparse kernels ran on the dense path: {sparse_launches}")
+    check(plan.num_models() == MAIN_FLEET[0], "plan lost models")
+    inst = set(cols.instance_ids)
+    for mid in cols.model_ids[:: MAIN_FLEET[0] // 1000]:
+        targets = plan.lookup(mid)
+        check(targets is not None and 0 < len(targets) <= MAX_COPIES,
+              f"bad targets for {mid}")
+        check(set(targets) <= inst, f"unknown instance for {mid}")
+
+    # The steady gates (bench.py's _steady_solve_config): the probe and
+    # chunk branches of both stages on the card.
+    gated_cfg = cfg._replace(sinkhorn_tol=0.02, auction_stall_tol=1e-3)
+    syncs0 = device_mod.host_syncs
+    t = time.perf_counter()
+    gated = one_solve(7, gated_cfg).stats
+    gated_ms = (time.perf_counter() - t) * 1e3
+    check(gated["solver_path"] == "dense" and math.isfinite(gated["overflow"]),
+          "gated dense solve")
+    result = {
+        "phase": "dense_main", "models": MAIN_FLEET[0],
+        "instances": MAIN_FLEET[1], "padded": list(TIER),
+        "pin": "MM_SOLVER_SPARSE=0", "solves": MAIN_SOLVES,
+        "solve_ms_median": float(np.median(times)),
+        "solve_ms_max": float(np.max(times)),
+        "per_solve_ms": times,
+        "device_solve_ms": [st["solve_ms"] for st in stats],
+        "extract_ms": [st["extract_ms"] for st in stats],
+        "overflow_frac": [st["overflow"] / demand for st in stats],
+        "row_err": [st["row_err"] for st in stats],
+        "sinkhorn_iters_run": [st["sinkhorn_iters_run"] for st in stats],
+        "auction_iters_run": [st["auction_iters_run"] for st in stats],
+        "launches": launches,
+        "launches_per_solve": per_solve,
+        "host_syncs_per_solve": syncs / MAIN_SOLVES,
+        "peak_device_bytes": peak_bytes,
+        "solver_path": stats[-1]["solver_path"],
+        "lse_impl": stats[-1]["lse_impl"],
+        "gated": {
+            "solve_ms": gated_ms,
+            "device_solve_ms": gated["solve_ms"],
+            "overflow_frac": gated["overflow"] / demand,
+            "row_err": gated["row_err"],
+            "sinkhorn_iters_run": gated["sinkhorn_iters_run"],
+            "auction_iters_run": gated["auction_iters_run"],
+            "host_syncs": device_mod.host_syncs - syncs0,
+        },
+        "top_k": time_top_k(dev),
+    }
+    emit(result)
+    return result
+
+
+def kernel_entries(table: dict, lib: str, launches: dict) -> list:
+    return [
+        {
+            "name": name, "route": "cuda", "source": SOURCES[lib],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+        }
+        for name, k in table.items()
+    ]
 
 
 def main() -> int:
@@ -341,23 +618,21 @@ def main() -> int:
     card = card_line()
     emit({"phase": "card", "nvidia_smi": card})
     kernels = phase_kernels(dev, card)
+    lse_kernels = phase_lse_kernels(dev, card)
     t0 = time.perf_counter()
     cols = steady_fleet(*MAIN_FLEET)
     main_run = phase_main(dev, cols, time.perf_counter() - t0)
     phase_profile(dev, cols)
     phase_parity(dev)
+    with dense_pin():
+        dense_run = phase_dense_main(dev, cols)
+        phase_profile(dev, cols, "dense_profile")
+    phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
     print(card)
-    emit({"kernels": [
-        {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": main_run["launches"][name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-        }
-        for name, k in kernels.items()
-    ]})
+    emit({"kernels": (
+        kernel_entries(kernels, "masked_sparse", main_run["launches"])
+        + kernel_entries(lse_kernels, "lse", dense_run["launches"])
+    )})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -35,6 +35,20 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
+def resolve_kernel_impl(knob: str, value: str, device) -> str:
+    """Validate a kernel-backend knob (``sparse_impl``, ``lse_impl``) and
+    name the backend that runs: "cuda" for CUDA tensors, "plain" (the
+    kernels' PyTorch versions) for CPU tensors. An explicit "cuda" on CPU
+    tensors raises instead of running plain."""
+    if value not in ("auto", "cuda"):
+        raise ValueError(f"{knob}={value!r} (expected auto | cuda)")
+    if torch.device(device).type == "cuda":
+        return "cuda"
+    if value == "cuda":
+        raise ValueError(f"{knob}='cuda' needs the problem on a CUDA device")
+    return "plain"
+
+
 def item(t: torch.Tensor):
     """``t.item()``, counted as one host sync."""
     global host_syncs

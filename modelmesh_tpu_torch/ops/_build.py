@@ -1,11 +1,12 @@
-"""Builds the port's CUDA kernels from the package's own sources.
+"""Builds, checks and launches the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface under ``modelmesh_tpu_torch/_build/`` (git-ignored), the
 first time a wrapper needs it, and is bound with ``ctypes``. The library
 name carries a digest of the source and the flags, so an edited source
 rebuilds and a stale library is never loaded. Sources build in parallel
-(one ``nvcc`` each, all started together).
+(one ``nvcc`` each, all started together). ``check_operands`` and
+``launch`` are what every kernel wrapper does around a launch.
 
 Nothing here runs at import time: this module is imported on hosts with
 no CUDA toolkit, where only the kernels' plain PyTorch versions run.
@@ -21,6 +22,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -48,6 +51,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mm_masked_col_matvec": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
         ],
+    },
+    "lse": {
+        "mm_row_lse_partial": [_P, _P, _P, _P, _I, _I, _F, _P],
+        "mm_col_lse_partial": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
 }
 
@@ -139,3 +146,54 @@ def load_library(name: str) -> ctypes.CDLL:
     """The bound library ``name``, built at first use."""
     with _lock:
         return _load_locked(name)
+
+
+def check_cpu(*tensors) -> None:
+    """Operands of a plain version: on the CPU, like the cost matrix."""
+    for t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError(f"C is on the CPU but an operand is on {t.device}")
+
+
+def check_operands(C, rows=(), cols=()) -> tuple[int, int]:
+    """What a kernel takes: C a contiguous 2-D bf16 tensor, and each
+    ``(name, tensor, dtype)`` of ``rows`` (``cols``) a contiguous vector of
+    that dtype and C's row (column) count, all on C's device. Returns
+    (n, m)."""
+    if C.dim() != 2 or C.dtype != torch.bfloat16:
+        raise TypeError(
+            f"C must be a 2-D bf16 tensor (got {C.dtype}, {C.dim()}-D)"
+        )
+    n, m = C.shape
+    want = [(name, t, dtype, n) for name, t, dtype in rows]
+    want += [(name, t, dtype, m) for name, t, dtype in cols]
+    for name, t, dtype, size in want:
+        if t.dtype != dtype or t.shape != (size,):
+            raise TypeError(
+                f"{name} must be {dtype}[{size}] (got {t.dtype}"
+                f"{list(t.shape)})"
+            )
+    for name, t in [("C", C)] + [(w[0], w[1]) for w in want]:
+        if t.device != C.device:
+            raise ValueError(f"{name} is on {t.device}, C on {C.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return n, m
+
+
+def check_cuda(C, rows=(), cols=()) -> tuple[int, int]:
+    """``check_operands`` for a launch: C must be on a CUDA device."""
+    if C.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {C.device}")
+    return check_operands(C, rows, cols)
+
+
+def launch(lib_name: str, fn_name: str, device, *args) -> None:
+    """Call ``fn_name`` of library ``lib_name`` on the current stream of
+    ``device``; raises when the launch was refused."""
+    lib = load_library(lib_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed (CUDA error {err})")

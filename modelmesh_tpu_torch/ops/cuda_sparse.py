@@ -100,54 +100,29 @@ def masked_col_matvec_ref(C, thresh, x_row, rowmin, u, *, eps: float,
     return u @ _scaled_kernel(C, thresh, x_row, rowmin, eps, tau, noised)
 
 
-def _check_cpu(*tensors) -> None:
-    for t in tensors:
-        if t.device.type != "cpu":
-            raise ValueError(
-                f"C is on the CPU but an operand is on {t.device}"
-            )
+def _vectors(thresh, x_row, rows, cols) -> dict:
+    return dict(
+        rows=[("thresh", thresh, torch.float32),
+              ("x_row", x_row, torch.int32)]
+        + [(name, t, torch.float32) for name, t in rows],
+        cols=[(name, t, torch.float32) for name, t in cols],
+    )
+
+
+def _check_operands(C, thresh, x_row, rows=(), cols=()) -> tuple[int, int]:
+    """Shapes, dtypes, devices and contiguity the kernels take; ``rows``
+    and ``cols`` are extra f32 ``(name, tensor)`` vectors. Returns
+    (n, m)."""
+    return _build.check_operands(C, **_vectors(thresh, x_row, rows, cols))
 
 
 def _check_cuda(C, thresh, x_row, rows=(), cols=()) -> tuple[int, int]:
     """Operands of a kernel launch: CUDA tensors the kernels take."""
-    if C.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {C.device}")
-    return _check_operands(C, thresh, x_row, rows, cols)
-
-
-def _check_operands(C, thresh, x_row, rows=(), cols=()) -> tuple[int, int]:
-    """Shapes, dtypes, devices and contiguity the kernels take; returns
-    (n, m)."""
-    if C.dim() != 2 or C.dtype != torch.bfloat16:
-        raise TypeError(
-            f"C must be a 2-D bf16 tensor (got {C.dtype}, {C.dim()}-D)"
-        )
-    n, m = C.shape
-    want = [(thresh, torch.float32, n, "thresh"),
-            (x_row, torch.int32, n, "x_row")]
-    want += [(t, torch.float32, n, name) for name, t in rows]
-    want += [(t, torch.float32, m, name) for name, t in cols]
-    for t, dtype, size, name in want:
-        if t.dtype != dtype or t.shape != (size,):
-            raise TypeError(
-                f"{name} must be {dtype}[{size}] (got {t.dtype}"
-                f"{list(t.shape)})"
-            )
-    for name, t in [("C", C)] + [(w[3], w[0]) for w in want]:
-        if t.device != C.device:
-            raise ValueError(f"{name} is on {t.device}, C on {C.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return n, m
+    return _build.check_cuda(C, **_vectors(thresh, x_row, rows, cols))
 
 
 def _launch(name: str, fn_name: str, device, *args) -> None:
-    lib = _build.load_library(LIB)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {err})")
+    _build.launch(LIB, fn_name, device, *args)
     launches[name] += 1
 
 
@@ -155,7 +130,7 @@ def masked_row_min(C, thresh, x_row, *, tau: float, noised: bool):
     """min_m { f32(C[n, m]) : key(n, m) <= thresh[n] } -> f32[N]; exact,
     so the kernel and the plain version agree bitwise."""
     if C.device.type == "cpu":
-        _check_cpu(thresh, x_row)
+        _build.check_cpu(thresh, x_row)
         return masked_row_min_ref(C, thresh, x_row, tau=tau, noised=noised)
     n, m = _check_cuda(C, thresh, x_row)
     out = torch.empty(n, dtype=torch.float32, device=C.device)
@@ -172,7 +147,7 @@ def masked_row_matvec(C, thresh, x_row, rowmin, v, *, eps: float,
                       tau: float, noised: bool):
     """r = P @ v without materializing P -> f32[N]."""
     if C.device.type == "cpu":
-        _check_cpu(thresh, x_row, rowmin, v)
+        _build.check_cpu(thresh, x_row, rowmin, v)
         return masked_row_matvec_ref(
             C, thresh, x_row, rowmin, v, eps=eps, tau=tau, noised=noised
         )
@@ -195,7 +170,7 @@ def masked_col_matvec(C, thresh, x_row, rowmin, u, *, eps: float,
     """c = u @ P without materializing P -> f32[M] (two passes: per-chunk
     partials, then a fixed-order sum; no float atomics)."""
     if C.device.type == "cpu":
-        _check_cpu(thresh, x_row, rowmin, u)
+        _build.check_cpu(thresh, x_row, rowmin, u)
         return masked_col_matvec_ref(
             C, thresh, x_row, rowmin, u, eps=eps, tau=tau, noised=noised
         )

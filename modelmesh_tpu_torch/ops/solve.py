@@ -1,8 +1,10 @@
 """Single-device global placement solve: the config, result and entry.
 
-Port of ``modelmesh_tpu/ops/solve.py``. Only the sparse top-K pipeline is
-ported; a config that routes dense raises ``NotImplementedError``. The
-solve runs on the device its problem's tensors are on.
+Port of ``modelmesh_tpu/ops/solve.py``. A config with ``0 < topk < M``
+runs the sparse top-K pipeline (``ops/sparse.py``); any other runs the
+dense tier: cost -> full-width Sinkhorn (the LSE kernels) -> plan logits
+-> dense auction. The solve runs on the device its problem's tensors are
+on.
 """
 
 from __future__ import annotations
@@ -12,6 +14,12 @@ from typing import NamedTuple
 import torch
 
 from modelmesh_tpu_torch.ops import costs as costs_mod
+from modelmesh_tpu_torch.ops.auction import (
+    MAX_COPIES,
+    auction,
+    check_auction_config,
+)
+from modelmesh_tpu_torch.ops.sinkhorn import plan_logits, sinkhorn
 from modelmesh_tpu_torch.ops.sparse import solve_sparse
 
 
@@ -27,7 +35,8 @@ class SolveConfig(NamedTuple):
     auction_stall_tol: float = 0.0
     tau: float = 1.0
     weights: costs_mod.CostWeights = costs_mod.CostWeights()
-    # Dense-tier LSE backend; the dense tier is not ported yet.
+    # Dense-tier LSE kernels: auto (CUDA kernels for CUDA tensors, their
+    # plain PyTorch versions for CPU tensors) | cuda (CUDA tensors required).
     lse_impl: str = "auto"
     # Implied-load histogram: auto | scatter (index_add_).
     load_impl: str = "auto"
@@ -83,4 +92,40 @@ def solve_placement(
     potentials and (with ``init.price0``) the auction prices."""
     if config.topk > 0 and config.topk < problem.num_instances:
         return solve_sparse(problem, config, seed, init)
-    raise NotImplementedError("dense tier: ROADMAP queue 1")
+    return _solve_dense(problem, config, seed, init)
+
+
+def _solve_dense(problem, config: SolveConfig, seed: int, init) -> Placement:
+    check_auction_config(
+        noise_impl=config.noise_impl, final_select=config.final_select,
+        iters=config.auction_iters, tau=config.tau,
+        load_impl=config.load_impl,
+    )
+    C = costs_mod.assemble_cost(
+        problem, weights=config.weights, dtype=config.dtype
+    )
+    # Copies clamped to what rounding can place, before the marginals:
+    # otherwise the prior reserves phantom capacity.
+    copies = torch.clamp_max(problem.copies, MAX_COPIES)
+    row_mass = problem.sizes * copies.to(torch.float32)
+    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+    sk = sinkhorn(
+        C, row_mass, free, eps=config.eps, iters=config.sinkhorn_iters,
+        lse_impl=config.lse_impl, g0=None if init is None else init.g0,
+        tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
+    )
+    logits = plan_logits(C, sk.f, sk.g, config.eps)
+    res = auction(
+        logits, problem.sizes, copies, free, problem.feasible, seed,
+        iters=config.auction_iters, eta=config.eta, tau=config.tau,
+        load_impl=config.load_impl, noise_impl=config.noise_impl,
+        final_select=config.final_select,
+        stall_tol=config.auction_stall_tol,
+        price0=None if init is None else init.price0,
+    )
+    return Placement(
+        indices=res.indices, valid=res.valid, load=res.load,
+        overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,
+        prices=res.prices, sinkhorn_iters_run=sk.iters_run,
+        auction_iters_run=res.iters_run,
+    )

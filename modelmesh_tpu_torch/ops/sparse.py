@@ -26,17 +26,16 @@ from modelmesh_tpu_torch.ops import costs as costs_mod
 from modelmesh_tpu_torch.ops import cuda_sparse
 from modelmesh_tpu_torch.ops.auction import (
     MAX_COPIES,
-    RESHORTLIST_EVERY,
     _NEG_INF,
+    AuctionResult,
     _implied_load,
-    _stall_gated_rounds,
     check_rounding_config,
     hash_gumbel_at,
-    price_step,
+    price_repair,
+    resolve_load_impl,
     select_from_candidates,
-    warm_probe,
 )
-from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, gated_sinkhorn_loop
+from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, run_sinkhorn
 
 # Gumbel scale for the candidate-selection draw (cost units), and the salt
 # that makes it independent of the rounding noise at the same counter.
@@ -58,16 +57,9 @@ class FusedGather(NamedTuple):
 
 
 def resolve_sparse_impl(sparse_impl: str, device: torch.device) -> str:
-    """Validate the kernel backend and name the one that runs: "cuda" for
-    CUDA tensors, "plain" (the kernels' PyTorch versions) for CPU tensors.
-    An explicit "cuda" on CPU tensors raises instead of running plain."""
-    if sparse_impl not in ("auto", "cuda"):
-        raise ValueError(f"sparse_impl={sparse_impl!r} (expected auto | cuda)")
-    if torch.device(device).type == "cuda":
-        return "cuda"
-    if sparse_impl == "cuda":
-        raise ValueError("sparse_impl='cuda' needs the problem on a CUDA device")
-    return "plain"
+    """The sparse kernels' backend: "cuda" | "plain"
+    (``device.resolve_kernel_impl``)."""
+    return device_mod.resolve_kernel_impl("sparse_impl", sparse_impl, device)
 
 
 def topk_candidates(
@@ -161,21 +153,10 @@ def sparse_sinkhorn(
         num = (row_sum - row_mass).abs().sum()
         return num / torch.clamp_min(row_mass.sum(), _TINY)
 
-    f_init = torch.zeros_like(log_a)
-    g_init = (
-        torch.clamp_max(g0.to(torch.float32), 0.0)  # g <= 0 invariant
-        if g0 is not None else torch.zeros_like(log_b)
-    )
-    if tol <= 0.0 or chunk <= 0 or iters <= 0:
-        f, g = run_iters(f_init, g_init, iters)
-        return SinkhornResult(
-            f=f, g=g, row_err=marginal_err(f, g), iters_run=iters
-        )
-    f, g, row_err, iters_run = gated_sinkhorn_loop(
-        run_iters, marginal_err, f_init, g_init,
+    return run_sinkhorn(
+        run_iters, marginal_err, C.shape[0], g0, log_b,
         eps=eps, iters=iters, tol=tol, chunk=chunk,
     )
-    return SinkhornResult(f=f, g=g, row_err=row_err, iters_run=iters_run)
 
 
 def sparse_auction(
@@ -191,15 +172,13 @@ def sparse_auction(
     stall_tol: float = 0.0,
     price0: torch.Tensor | None = None,
     sel_k: int = MAX_COPIES,
-):
-    """Price repair over a fixed candidate set, with the reference's
-    best-iterate tracking, warm probe and stall gates. Returns
-    ``(idx, valid, load, prices, overflow, iters_run)``; ``iters_run`` is
-    a host int."""
+) -> AuctionResult:
+    """Price repair over a fixed candidate set (``price_repair``, with the
+    reference's best-iterate tracking, warm probe and stall gates); every
+    selection, the epilogue's included, is within the candidates."""
     num_instances = capacity.shape[0]
     cap = torch.clamp_min(capacity.to(torch.float32), 1e-6)
     copies = torch.clamp_max(copies, MAX_COPIES)
-    n = scores_k.shape[0]
     nsel = min(sel_k, MAX_COPIES)
 
     def implied_load(idx, valid):
@@ -211,83 +190,11 @@ def sparse_auction(
     def select(price):
         return select_from_candidates(scores_k, idx_k, copies, price, nsel)
 
-    def overflow(load):
-        return torch.clamp_min(load - cap, 0.0).sum()
-
-    def narrow_round(carry, length):
-        price, bp, bi, bv, bl, bo = carry
-        for _ in range(length):
-            idx, valid = select(price)
-            load = implied_load(idx, valid)
-            of = overflow(load)
-            better = of < bo
-            # Best-iterate selection prices are the warm-start carry.
-            bp = torch.where(better, price, bp)
-            bi = torch.where(better, idx, bi)
-            bv = torch.where(better, valid, bv)
-            bl = torch.where(better, load, bl)
-            bo = torch.minimum(of, bo)
-            price = price_step(load, cap, price, eta)
-        return price, bp, bi, bv, bl, bo
-
-    p_init = (
-        torch.clamp_min(price0.to(torch.float32), 0.0)  # price >= 0 invariant
-        if price0 is not None
-        else torch.zeros(num_instances, dtype=torch.float32,
-                         device=capacity.device)
+    return price_repair(
+        lambda _price: select, select, implied_load, sizes, copies, cap,
+        iters=iters, eta=eta, final_select=final_select,
+        stall_tol=stall_tol, price0=price0,
     )
-
-    def epilogue(carry, iters_run):
-        price, best_price, best_idx, best_valid, best_load, best_of = carry
-        if final_select == "none":
-            return (best_idx, best_valid, best_load, best_price, best_of,
-                    iters_run)
-        idx_l, valid_l = select(price)
-        load_l = implied_load(idx_l, valid_l)
-        of_l = overflow(load_l)
-        use_last = of_l <= best_of
-        return (
-            torch.where(use_last, idx_l, best_idx),
-            torch.where(use_last, valid_l, best_valid),
-            torch.where(use_last, load_l, best_load),
-            torch.where(use_last, price, best_price),
-            torch.minimum(of_l, best_of),
-            iters_run,
-        )
-
-    dev = capacity.device
-    carry = (
-        p_init,
-        p_init,
-        torch.zeros((n, MAX_COPIES), dtype=idx_k.dtype, device=dev),
-        torch.zeros((n, MAX_COPIES), dtype=torch.bool, device=dev),
-        torch.zeros(num_instances, dtype=torch.float32, device=dev),
-        torch.tensor(torch.inf, dtype=torch.float32, device=dev),
-    )
-    if stall_tol <= 0.0:
-        for length in [RESHORTLIST_EVERY] * (iters // RESHORTLIST_EVERY) + (
-            [iters % RESHORTLIST_EVERY] if iters % RESHORTLIST_EVERY else []
-        ):
-            carry = narrow_round(carry, length)
-        return epilogue(carry, iters)
-
-    total_demand = (sizes * copies.to(torch.float32)).sum()
-    if final_select == "none":
-        carry2, iters_run = _stall_gated_rounds(
-            narrow_round, carry, iters, stall_tol, total_demand,
-        )
-        return epilogue(carry2, iters_run)
-
-    idx_p, valid_p, load_p, of_p, p_probe, probe_ok = warm_probe(
-        select, p_init, cap, implied_load, eta, stall_tol, total_demand,
-    )
-    if device_mod.item(probe_ok):
-        return idx_p, valid_p, load_p, p_probe, of_p, 1
-    seeded = (p_probe, p_init, idx_p, valid_p, load_p, of_p)
-    carry2, iters_run = _stall_gated_rounds(
-        narrow_round, seeded, iters, stall_tol, total_demand,
-    )
-    return epilogue(carry2, iters_run + 1)
 
 
 def check_sparse_config(config) -> None:
@@ -305,12 +212,7 @@ def check_sparse_config(config) -> None:
             f"sel_width={config.sel_width} (expected 1..{MAX_COPIES}, "
             "or 0 for the MAX_COPIES default)"
         )
-    # The implied-load histogram is a scatter-add here; the reference's
-    # "fused" compare-reduce exists only for the TPU's serialized scatter.
-    if config.load_impl not in ("auto", "scatter"):
-        raise ValueError(
-            f"load_impl={config.load_impl!r} (expected auto | scatter)"
-        )
+    resolve_load_impl(config.load_impl)
 
 
 def perturb_gathered(
@@ -355,7 +257,7 @@ def solve_sparse(problem, config, seed: int, init):
         (sk.f[:, None] + sk.g[idx_k] - cost_k.to(torch.float32)) / config.eps
     ).to(config.dtype)
     scores_k = perturb_gathered(logits_k, idx_k, feas_k, config.tau, seed)
-    idx, valid, load, prices, overflow, au_iters = sparse_auction(
+    res = sparse_auction(
         scores_k, idx_k, problem.sizes, copies, free,
         iters=config.auction_iters, eta=config.eta,
         final_select=config.final_select,
@@ -364,7 +266,8 @@ def solve_sparse(problem, config, seed: int, init):
         sel_k=config.sel_width or MAX_COPIES,
     )
     return Placement(
-        indices=idx, valid=valid, load=load, overflow=overflow,
-        row_err=sk.row_err, f=sk.f, g=sk.g, prices=prices,
-        sinkhorn_iters_run=sk.iters_run, auction_iters_run=au_iters,
+        indices=res.indices, valid=res.valid, load=res.load,
+        overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,
+        prices=res.prices, sinkhorn_iters_run=sk.iters_run,
+        auction_iters_run=res.iters_run,
     )

@@ -3,7 +3,8 @@
 Port of the solver half of ``modelmesh_tpu/placement/jax_engine.py``:
 ``snapshot_columns`` builds a columnar host snapshot of cluster state,
 ``dispatch_solve`` expands it into a ``PlacementProblem`` on the device and
-runs the sparse solve, and ``finalize_plan`` reads the result back in one
+runs the solve (sparse top-K or the dense tier, by the reference's
+dispatch rule), and ``finalize_plan`` reads the result back in one
 batched readback and packs it into a ``GlobalPlan``. Plans are advisory:
 the serving layer's local guards stay authoritative.
 
@@ -26,6 +27,7 @@ import torch
 
 from modelmesh_tpu_torch import device as device_mod
 from modelmesh_tpu_torch.ops.costs import PlacementProblem
+from modelmesh_tpu_torch.ops.sinkhorn import resolve_lse_impl
 from modelmesh_tpu_torch.ops.solve import SolveConfig, SolveInit, solve_placement
 from modelmesh_tpu_torch.ops.sparse import resolve_sparse_impl
 from modelmesh_tpu_torch.records import InstanceRecord, ModelRecord, now_ms
@@ -509,7 +511,10 @@ class PendingSolve(NamedTuple):
     warm: bool
     path: str = "sparse"
     topk: int = 0
-    sparse_impl: str = "cuda"   # kernels that ran: cuda | plain
+    # The path's kernel knob and the backend that ran (cuda | plain):
+    # "sparse_impl" on a sparse solve, "lse_impl" on a dense one.
+    impl_knob: str = "sparse_impl"
+    impl: str = "cuda"
     syncs_at_start: int = 0     # device.host_syncs when dispatch began
 
 
@@ -528,14 +533,16 @@ def dispatch_solve(
     *,
     device=None,
 ) -> PendingSolve:
-    """Expand ``cols`` on ``device`` and run the sparse solve.
+    """Expand ``cols`` on ``device`` and run the solve: sparse top-K, or
+    the dense tier for small fleets and the MM_SOLVER_SPARSE=0 pin
+    (``_resolve_sparse_config``).
 
     ``device=None`` means the first CUDA device, and raises without one
     (``device.resolve_device``). Warm starts come from the
     ``warm_g``/``warm_price`` per-instance-id dicts of the previous plan
     (instances unknown to them start cold). ``mesh``, ``donate`` and the
-    incremental ``base``/``dirty_rows`` are not ported yet and raise; so
-    does a fleet the dispatch rule routes to the dense tier."""
+    incremental ``base``/``dirty_rows`` are not ported yet and raise, as
+    does the dense tier's threefry noise."""
     if mesh is not None:
         raise NotImplementedError("sharded solve: ROADMAP queue 1")
     if donate:
@@ -550,6 +557,11 @@ def dispatch_solve(
     max_copies = int(cols.copies.max()) if len(cols.copies) else 1
     config, sparse = _resolve_sparse_config(config, m_pad, max_copies)
     cfg = SolveConfig() if config is None else config
+    if sparse:
+        impl_knob, impl = "sparse_impl", resolve_sparse_impl(
+            cfg.sparse_impl, dev)
+    else:
+        impl_knob, impl = "lse_impl", resolve_lse_impl(cfg.lse_impl, dev)
 
     g0 = np.zeros(m_pad, np.float32)
     price0 = np.zeros(m_pad, np.float32)
@@ -569,7 +581,7 @@ def dispatch_solve(
         warm=bool(warm_g),
         path="sparse" if sparse else "dense",
         topk=cfg.topk if sparse else 0,
-        sparse_impl=resolve_sparse_impl(cfg.sparse_impl, dev),
+        impl_knob=impl_knob, impl=impl,
         syncs_at_start=syncs0,
     )
 
@@ -623,7 +635,7 @@ def finalize_plan(
         "extract_ms": (t3 - t2) * 1e3,
         "warm": pending.warm,
         "solver_path": pending.path,
-        "sparse_impl": pending.sparse_impl,
+        pending.impl_knob: pending.impl,
         "overflow": float(scalars[0]),
         "row_err": float(scalars[1]),
         "sinkhorn_iters_run": sol.sinkhorn_iters_run,

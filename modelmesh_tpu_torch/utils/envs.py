@@ -1,7 +1,7 @@
 """Registry of the environment knobs the port reads.
 
 The port's own copy of the reference registry's accessors, holding only
-the solver knobs of the sparse placement solve. ``get`` raises ``KeyError``
+the knobs of the placement solve. ``get`` raises ``KeyError``
 for an unregistered name, so a typo'd knob fails at the call site instead
 of silently reading the default.
 """
@@ -37,12 +37,13 @@ REGISTRY: dict[str, EnvVar] = {
                "Gumbel sampling temperature; 0 = deterministic argmax",
                _ENGINE),
         EnvVar("MM_SOLVER_LSE_IMPL", "str", "",
-               "dense-tier Sinkhorn LSE backend (the dense tier is not "
-               "ported yet)", _ENGINE),
+               "dense-tier Sinkhorn LSE kernels: auto (default — the CUDA "
+               "kernels for CUDA tensors, their plain PyTorch versions "
+               "for CPU tensors) | cuda (CUDA tensors required)", _ENGINE),
         EnvVar("MM_SOLVER_LOAD_IMPL", "str", "",
                "auction implied-load histogram: auto | scatter", _ENGINE),
         EnvVar("MM_SOLVER_NOISE_IMPL", "str", "",
-               "rounding noise generator: hash (threefry is JAX-only)",
+               "rounding noise generator: hash (threefry is not ported)",
                _ENGINE),
         EnvVar("MM_SOLVER_FINAL_SELECT", "str", "",
                "auction epilogue selection: exact | approx | none",

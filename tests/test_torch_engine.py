@@ -18,7 +18,7 @@ from modelmesh_tpu.placement.synthetic import synthetic_records as jax_records
 from modelmesh_tpu.records import InstanceRecord as JaxInstanceRecord
 from modelmesh_tpu_torch import device as device_mod
 from modelmesh_tpu_torch.carry import columns_from_numpy
-from modelmesh_tpu_torch.ops import _build, cuda_sparse
+from modelmesh_tpu_torch.ops import _build, cuda_lse, cuda_sparse
 from modelmesh_tpu_torch.ops.solve import SolveConfig
 from modelmesh_tpu_torch.placement import torch_engine as te
 from modelmesh_tpu_torch.placement.synthetic import synthetic_records
@@ -143,17 +143,23 @@ def test_warm_dispatch_matches_reference(snapshots):
     assert agree >= 0.97, agree
 
 
-def test_cpu_dispatch_calls_no_cuda_code(snapshots, monkeypatch):
+@pytest.mark.parametrize("pin,path", [(None, "sparse"), ("0", "dense")])
+def test_cpu_dispatch_calls_no_cuda_code(snapshots, monkeypatch, pin, path):
     def refuse(*a, **k):
         raise AssertionError("CUDA code reached on a CPU solve")
 
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(_build, "build_all", refuse)
     monkeypatch.setattr(torch.cuda, "current_stream", refuse)
+    if pin is not None:
+        monkeypatch.setenv("MM_SOLVER_SPARSE", pin)
     cuda_sparse.reset_launches()
+    cuda_lse.reset_launches()
     plan = te.finalize_plan(te.dispatch_solve(snapshots[1], device="cpu"))
     assert plan.num_models() == N
+    assert plan.stats["solver_path"] == path
     assert all(v == 0 for v in cuda_sparse.launches.values())
+    assert all(v == 0 for v in cuda_lse.launches.values())
 
 
 def test_default_device_without_cuda_raises(snapshots, monkeypatch):
@@ -174,12 +180,54 @@ def test_unported_dispatch_options_raise(snapshots, kw):
         te.dispatch_solve(snapshots[1], device="cpu", **kw)
 
 
-def test_dense_routed_fleet_raises(pinned_clock):
-    models, instances, rpm = _fleet(synthetic_records, InstanceRecord,
-                                    n=300, m=40)
-    cols = te.snapshot_columns(models, instances, rpm)
-    with pytest.raises(NotImplementedError, match="dense tier"):
-        te.dispatch_solve(cols, device="cpu")
+def _plans_agree(jc, jplan, tplan) -> float:
+    return float(np.mean([jplan.lookup(mid) == tplan.lookup(mid)
+                          for mid in jc.model_ids]))
+
+
+def test_dense_routed_fleet_matches_reference(pinned_clock):
+    """300 x 40 pads to 64 instance columns, under the sparse auto floor:
+    both engines route it to the dense tier."""
+    jm, ji, rpm = _fleet(jax_records, JaxInstanceRecord, n=300, m=40)
+    jc = je.snapshot_columns(jm, ji, rpm)
+    jplan = je.finalize_plan(je.dispatch_solve(jc, seed=3))
+    tplan = te.finalize_plan(
+        te.dispatch_solve(columns_from_numpy(jc), seed=3, device="cpu")
+    )
+    assert tplan.stats["solver_path"] == jplan.stats["solver_path"] == "dense"
+    assert tplan.stats["lse_impl"] == "plain"
+    assert "sparse_impl" not in tplan.stats and "topk" not in tplan.stats
+    assert _plans_agree(jc, jplan, tplan) >= 0.97
+    for key in ("sinkhorn_iters_run", "auction_iters_run"):
+        assert tplan.stats[key] == jplan.stats[key]
+    assert tplan.stats["host_syncs"] == 2       # the two readbacks only
+    np.testing.assert_allclose(
+        [tplan.warm_g[i] for i in jc.instance_ids],
+        [jplan.warm_g[i] for i in jc.instance_ids], atol=1e-3,
+    )
+
+
+def test_dense_pin_at_sparse_width_matches_reference(snapshots, monkeypatch):
+    """MM_SOLVER_SPARSE=0 routes dense a fleet the auto rule sends sparse
+    (1500 x 150 pads to 192 columns)."""
+    monkeypatch.setenv("MM_SOLVER_SPARSE", "0")
+    jc, _ = snapshots
+    jplan = je.finalize_plan(je.dispatch_solve(jc, seed=3))
+    tplan = te.finalize_plan(
+        te.dispatch_solve(columns_from_numpy(jc), seed=3, device="cpu")
+    )
+    assert tplan.stats["solver_path"] == jplan.stats["solver_path"] == "dense"
+    assert _plans_agree(jc, jplan, tplan) >= 0.97
+    for key in ("sinkhorn_iters_run", "auction_iters_run"):
+        assert tplan.stats[key] == jplan.stats[key]
+
+
+def test_threefry_noise_raises(snapshots):
+    """The threefry pin routes dense (as in the reference), whose threefry
+    draw is not ported: it raises rather than drawing hash noise."""
+    cfg = SolveConfig(noise_impl="threefry")
+    with pytest.raises(NotImplementedError, match="threefry"):
+        te.dispatch_solve(snapshots[1], config=cfg, device="cpu")
 
 
 def test_solve_plan_end_to_end(pinned_clock):

@@ -147,10 +147,14 @@ def test_cpu_solve_never_loads_kernels(problems, monkeypatch):
 
 
 def test_dense_route_raises(problems):
-    with pytest.raises(NotImplementedError, match="dense tier"):
-        solve_placement(problems[1], SolveConfig(topk=0))
-    with pytest.raises(NotImplementedError, match="dense tier"):
-        solve_placement(problems[1], SolveConfig(topk=M))
+    """topk = 0 or >= M routes dense (tests/test_torch_dense_solve.py holds
+    that tier against the reference); there the sparse-only knob checks
+    do not apply, and what the dense tier does not port raises."""
+    with pytest.raises(NotImplementedError, match="threefry"):
+        solve_placement(problems[1], SolveConfig(topk=0,
+                                                 noise_impl="threefry"))
+    with pytest.raises(ValueError, match="lse_impl"):
+        solve_placement(problems[1], SolveConfig(topk=M, lse_impl="cuda"))
 
 
 @pytest.mark.parametrize("bad,match", [
