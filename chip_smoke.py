@@ -10,14 +10,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the card's name and power limit.
 2. kernels — each sparse kernel against its plain PyTorch version on the
              card at the 100k x 1k tier's padded shape (C bf16[131072, 1024]
-             from a seed, thresholds from the port's top-K gather): rowmin
-             bitwise, the flat-integrand candidate counts exact, the
-             matvecs at rtol 1e-5 / atol 1e-6; median kernel time over 20
-             launches.
+             from a seed, thresholds from the port's top-K gather), at the
+             wide path's [12288, 1536] (two column slabs, the cp.async ring),
+             at a ragged [1000, 1001] and an odd [1000, 1537] (scalar loads,
+             the register stage), and on 4096 rows of tied costs (hundreds
+             of candidates a row) 1024 and 1536 wide: rowmin and the packed
+             mask bits bitwise, the flat-integrand candidate counts of the
+             row, column and fused products exact, the products at rtol 1e-5
+             / atol 1e-6; time per launch over a run of 20 at the shape each
+             kernel's path gives it (the column-only pass: the wide path's;
+             it and the row-only pass also at the other shape), the fused
+             step beside the row and column products back to back, and the
+             column passes' device time split between the pass and the
+             combine of its block partials (profiler).
    lse_kernels — the two LSE kernels against their plain versions at the
              same shape (LSE and running max at atol 1e-4 / rtol 1e-5),
              the extreme-value case (C and shift x 30: finite, rtol 1e-5),
-             median time over 20 launches, and torch.logsumexp over a
+             time per launch over a run of 20, and torch.logsumexp over a
              materialized z as the library yardstick.
 3. main    — the production dispatch at 100,000 models x 1,000 instances
              (synthetic fleet at 85% utilization): snapshot_columns ->
@@ -29,6 +38,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 4. parity  — one 20,000 x 256 snapshot solved on the card and on the CPU
              (plain versions): placement agreement >= 0.97 and overflow
              within 0.5% of demand.
+   wide    — the same at 10,000 x 1,200 (1536 padded instances, wider than
+             the fused step's 1024 columns, so each Sinkhorn iteration runs
+             the row and column products back to back); the sparse launch
+             counters are zeroed just before the card's solve and read just
+             after: the column-only kernel's path.
 5. dense_main — the same 100k x 1k fleet on the dense tier (the
              reference's "full Sinkhorn", pinned with MM_SOLVER_SPARSE=0
              around the phase): one warm-up, 5 solves with the default
@@ -45,6 +59,7 @@ device it exits non-zero before printing any result.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -72,6 +87,10 @@ SEED = 20260
 TIER = (131072, 1024)          # _bucket(100_000) x _bucket(1_000, 64)
 MAIN_FLEET = (100_000, 1_000)
 PARITY_FLEET = (20_000, 256)
+WIDE_FLEET = (10_000, 1_200)   # pads to 1536 columns: wider than the fused step
+WIDE = (12288, 1536)           # the wide fleet's padded shape
+RAGGED = (1000, 1001)
+TIES_ROWS = 4096
 DENSE_PARITY_FLEET = (10_000, 128)   # pads to 128 columns: auto routes dense
 STEADY_UTILIZATION = 0.85
 KERNEL_REPS = 20
@@ -80,23 +99,34 @@ MAIN_SOLVES = 5
 # and f32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 PEAK_F32_OPS_PER_S = 67e12
-# f32/int32 operations per cost-matrix element: the selection key (hash:
-# 10 integer ops; uniform, clamp, two logs, two negations, scale, subtract)
-# and the mask test, then the min, or the shifted exp and multiply-add.
-# The LSE kernels: subtract, divide, max, subtract, exp, add.
-OPS_PER_ELEMENT = {"masked_row_min": 20, "masked_row_matvec": 25,
-                   "masked_col_matvec": 25, "row_lse_partial": 6,
-                   "col_lse_partial": 6}
+# f32/int32 operations by the data sheet's count, per cost-matrix element
+# and per candidate (set mask bit). masked_row_min: the selection key
+# (hash: 10 integer ops; uniform, clamp, two logs, two negations, scale,
+# subtract), the mask test and the min, on every element. The bit-reading
+# kernels: a bit test and a convert per element; per candidate a subtract,
+# a divide, an exp and a multiply-add (the fused step one more
+# multiply-add, for the column). The LSE kernels: subtract, divide, max,
+# subtract, exp, add.
+OPS_PER_ELEMENT = {"masked_row_min": 20, "masked_row_matvec": 2,
+                   "masked_col_matvec": 2, "masked_sinkhorn_step": 2,
+                   "row_lse_partial": 6, "col_lse_partial": 6}
+OPS_PER_CANDIDATE = {"masked_row_matvec": 5, "masked_col_matvec": 5,
+                     "masked_sinkhorn_step": 7}
 REPLACES = {
     "masked_row_min": "modelmesh_tpu/ops/pallas_sparse.py:196",
     "masked_row_matvec": "modelmesh_tpu/ops/pallas_sparse.py:226",
     "masked_col_matvec": "modelmesh_tpu/ops/pallas_sparse.py:260",
+    "masked_sinkhorn_step": ("modelmesh_tpu/ops/pallas_sparse.py:226, "
+                             "modelmesh_tpu/ops/pallas_sparse.py:260"),
     "row_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:130",
     "col_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:167",
 }
 SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
            "lse": "modelmesh_tpu_torch/csrc/lse.cu"}
 LSE_EPS = 0.05
+SPARSE_EPS = 0.05
+SPARSE_K = 24
+SPARSE_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def emit(obj) -> None:
@@ -125,25 +155,29 @@ def peak_bytes_per_s(name: str) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, from CUDA events."""
+    """Device time of one ``fn``: CUDA events around ``reps`` runs back to
+    back, over ``reps``, after a warm-up run. The host enqueues ahead of
+    the card, so a short kernel is not charged its launch latency."""
     fn()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
-def bound(name: str, nbytes: int, elements: int, card: str) -> dict:
+def bound(name: str, nbytes: int, elements: int, card: str,
+          candidates: int = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
+    operations over the f32 rate, whichever is larger. ``candidates``:
+    this run's set mask bits, for the kernels whose work depends on them."""
     bytes_ms = nbytes / peak_bytes_per_s(card) * 1e3
-    ops_ms = OPS_PER_ELEMENT[name] * elements / PEAK_F32_OPS_PER_S * 1e3
+    ops = (OPS_PER_ELEMENT[name] * elements
+           + OPS_PER_CANDIDATE.get(name, 0) * candidates)
+    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes}
@@ -163,76 +197,179 @@ def phase_build() -> None:
           "nvcc_seconds": _build.build_seconds, "ptxas": ptxas})
 
 
+def sparse_operands(C, seed=SEED):
+    """Thresholds from the port's top-K gather of C (K = 24; no selection
+    noise when ``seed`` is None)."""
+    feasible = torch.ones(C.shape, dtype=torch.bool, device=C.device)
+    _, _, _, fz = sparse.topk_candidates(C, feasible, SPARSE_K, seed=seed)
+    return (C, fz.thresh, fz.x_row), dict(tau=fz.tau, noised=fz.noised)
+
+
+def check_sparse_kernels(C, tag: str, seed=SEED) -> dict:
+    """Every sparse kernel against its plain version on C: rowmin and the
+    bits bitwise, flat-integrand counts exact, products within SPARSE_TOL.
+    Returns what phase_kernels times: the operands, the bit-reading kernels
+    (name -> (kernel, plain version)), the candidate count and the
+    errors."""
+    n, m = C.shape
+    args, kw = sparse_operands(C, seed)
+    rowmin, bits = cuda_sparse.masked_row_min(*args, **kw)
+    rowmin_ref, bits_ref = cuda_sparse.masked_row_min_ref(*args, **kw)
+    check(torch.equal(rowmin.view(torch.int32), rowmin_ref.view(torch.int32)),
+          f"{tag}: masked_row_min differs bitwise from its plain version")
+    check(torch.equal(bits, bits_ref),
+          f"{tag}: masked_row_min's bits differ from the plain packing")
+    pass_args = (C, bits, rowmin)
+    fused = m <= cuda_sparse.FUSED_MAX_COLS
+
+    # Flat integrand (eps = 1e30 makes every in-mask exp exactly 1.0f): the
+    # products count candidates, and must match as exact integers. The
+    # fused step's row mass is the row counts, so u = 1 and its column
+    # product counts too.
+    ones_m = torch.ones(m, device=C.device)
+    ones_n = torch.ones(n, device=C.device)
+    rc_ref = cuda_sparse.masked_row_matvec_ref(*pass_args, ones_m, eps=1e30)
+    cc_ref = cuda_sparse.masked_col_matvec_ref(*pass_args, ones_n, eps=1e30)
+    check(torch.equal(
+        cuda_sparse.masked_row_matvec(*pass_args, ones_m, eps=1e30), rc_ref),
+        f"{tag}: row candidate counts differ")
+    check(torch.equal(
+        cuda_sparse.masked_col_matvec(*pass_args, ones_n, eps=1e30), cc_ref),
+        f"{tag}: column candidate counts differ")
+    if fused:
+        r, c = cuda_sparse.masked_sinkhorn_step(
+            *pass_args, ones_m, rc_ref, eps=1e30)
+        check(torch.equal(r, rc_ref) and torch.equal(c, cc_ref),
+              f"{tag}: fused candidate counts differ")
+    check(int(rc_ref.min().item()) >= SPARSE_K,
+          f"{tag}: a row has fewer than K candidates")
+
+    gen = torch.Generator(device=C.device).manual_seed(SEED + 3)
+    v = torch.rand(m, generator=gen, device=C.device) + 0.1
+    u = torch.rand(n, generator=gen, device=C.device) + 0.1
+    row_mass = torch.rand(n, generator=gen, device=C.device) * 8 + 1
+    eps = dict(eps=SPARSE_EPS)
+    ops = {
+        "masked_row_matvec": (
+            functools.partial(cuda_sparse.masked_row_matvec, *pass_args, v,
+                              **eps),
+            functools.partial(cuda_sparse.masked_row_matvec_ref, *pass_args,
+                              v, **eps)),
+        "masked_col_matvec": (
+            functools.partial(cuda_sparse.masked_col_matvec, *pass_args, u,
+                              **eps),
+            functools.partial(cuda_sparse.masked_col_matvec_ref, *pass_args,
+                              u, **eps)),
+    }
+    if fused:
+        ops["masked_sinkhorn_step"] = (
+            functools.partial(cuda_sparse.masked_sinkhorn_step, *pass_args,
+                              v, row_mass, **eps),
+            functools.partial(cuda_sparse.masked_sinkhorn_step_ref,
+                              *pass_args, v, row_mass, **eps))
+
+    def flat(out):  # the fused step's (r, c) as one vector
+        return torch.cat(out) if isinstance(out, tuple) else out
+
+    errors = {"masked_row_min": 0.0}
+    for name, (kernel, plain) in ops.items():
+        got, ref = flat(kernel()), flat(plain())
+        errors[name] = float((got - ref).abs().max().item())
+        check(torch.allclose(got, ref, **SPARSE_TOL),
+              f"{tag}: {name} differs from its plain version "
+              f"(max abs {errors[name]})")
+    return {"args": args, "kw": kw, "pass_args": pass_args, "v": v,
+            "row_mass": row_mass, "ops": ops,
+            "candidates": int(rc_ref.sum().item()), "errors": errors}
+
+
 def phase_kernels(dev, card: str) -> dict:
     n, m = TIER
     gen = torch.Generator(device=dev).manual_seed(SEED)
     C = (torch.randn((n, m), generator=gen, device=dev) * 3.0).to(
         torch.bfloat16
     )
-    feasible = torch.ones((n, m), dtype=torch.bool, device=dev)
-    _, _, _, fz = sparse.topk_candidates(C, feasible, 24, seed=SEED)
-    args = (C, fz.thresh, fz.x_row)
-    kw = dict(tau=fz.tau, noised=fz.noised)
-    eps = 0.05
-    v = torch.rand(m, generator=gen, device=dev) + 0.1
-    u = torch.rand(n, generator=gen, device=dev) + 0.1
+    wide_odd = (torch.randn((WIDE[0], WIDE[1] + 1), generator=gen,
+                            device=dev) * 3.0).to(torch.bfloat16)
+    # The unvectorized paths first: odd widths (no 16-byte loads, no ring
+    # stage, a ballot per mask word; one and two column slabs) and ragged
+    # last words and blocks.
+    check_sparse_kernels(C[:RAGGED[0], :RAGGED[1]].contiguous(), "ragged")
+    check_sparse_kernels(wide_odd[:RAGGED[0]].contiguous(), "wide_odd")
+    # Rows with more than 32 candidates (the column kernels' later rounds),
+    # in one column slab and in two: costs in {0, 1, 2} and no selection
+    # noise, so the K-th key ties with a third of the row.
+    ties = torch.randint(0, 3, (TIES_ROWS, WIDE[1]), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    check_sparse_kernels(ties[:, :m].contiguous(), "ties", seed=None)
+    check_sparse_kernels(ties, "ties_wide", seed=None)
+    del ties
+    # The wide path's shape: the column-only pass's second slab.
+    w = check_sparse_kernels(wide_odd[:, :WIDE[1]].contiguous(), "wide")
+    del wide_odd
+    t = check_sparse_kernels(C, "tier")
+    args, kw, pass_args = t["args"], t["kw"], t["pass_args"]
 
-    rowmin = cuda_sparse.masked_row_min(*args, **kw)
-    rowmin_ref = cuda_sparse.masked_row_min_ref(*args, **kw)
-    check(torch.equal(rowmin.view(torch.int32), rowmin_ref.view(torch.int32)),
-          "masked_row_min differs bitwise from its plain version")
+    def row_then_col():
+        """The unfused iteration: row product, clamp, divide, column."""
+        r = torch.clamp_min(cuda_sparse.masked_row_matvec(
+            *pass_args, t["v"], eps=SPARSE_EPS), cuda_sparse.TINY)
+        cuda_sparse.masked_col_matvec(*pass_args, t["row_mass"] / r,
+                                      eps=SPARSE_EPS)
 
-    # Flat integrand (eps = 1e30 makes every in-mask exp exactly 1.0f): the
-    # products count candidates, and must match as exact integers.
-    ones_m = torch.ones(m, device=dev)
-    ones_n = torch.ones(n, device=dev)
-    flat = dict(eps=1e30, **kw)
-    rc = cuda_sparse.masked_row_matvec(*args, rowmin, ones_m, **flat)
-    rc_ref = cuda_sparse.masked_row_matvec_ref(*args, rowmin, ones_m, **flat)
-    cc = cuda_sparse.masked_col_matvec(*args, rowmin, ones_n, **flat)
-    cc_ref = cuda_sparse.masked_col_matvec_ref(*args, rowmin, ones_n, **flat)
-    check(torch.equal(rc, rc_ref), "row candidate counts differ")
-    check(torch.equal(cc, cc_ref), "column candidate counts differ")
-    check(int(rc.min().item()) >= 24, "a row has fewer than K candidates")
+    def nbytes(name, shape):
+        """Bytes the function must move: its inputs once, its outputs
+        once."""
+        rows, cols = shape
+        c_bytes = rows * cols * 2
+        bits_bytes = rows * cuda_sparse.mask_words(cols) * 4
+        return {
+            "masked_row_min": c_bytes + 3 * rows * 4 + bits_bytes,
+            "masked_row_matvec": c_bytes + bits_bytes + 2 * rows * 4
+            + cols * 4,
+            "masked_col_matvec": c_bytes + bits_bytes + 2 * rows * 4
+            + cols * 4,
+            "masked_sinkhorn_step": c_bytes + bits_bytes + 3 * rows * 4
+            + 2 * cols * 4,
+        }[name]
 
-    calls = {
-        "masked_row_min": (
-            lambda: cuda_sparse.masked_row_min(*args, **kw),
-            lambda: cuda_sparse.masked_row_min_ref(*args, **kw),
-            3 * n * 4 + n * m * 2,
-        ),
-        "masked_row_matvec": (
-            lambda: cuda_sparse.masked_row_matvec(
-                *args, rowmin, v, eps=eps, **kw),
-            lambda: cuda_sparse.masked_row_matvec_ref(
-                *args, rowmin, v, eps=eps, **kw),
-            4 * n * 4 + m * 4 + n * m * 2,
-        ),
-        "masked_col_matvec": (
-            lambda: cuda_sparse.masked_col_matvec(
-                *args, rowmin, u, eps=eps, **kw),
-            lambda: cuda_sparse.masked_col_matvec_ref(
-                *args, rowmin, u, eps=eps, **kw),
-            4 * n * 4 + m * 4 + n * m * 2,
-        ),
-    }
+    calls = {"masked_row_min": (
+        lambda: cuda_sparse.masked_row_min(*args, **kw),
+        lambda: cuda_sparse.masked_row_min_ref(*args, **kw))}
+    calls.update(t["ops"])
+    # Each kernel at the shape its path gives it: the column-only pass runs
+    # on the wide path alone (the tier takes the fused step).
+    at = {name: (TIER, calls[name], t) for name in calls}
+    at["masked_col_matvec"] = (WIDE, w["ops"]["masked_col_matvec"], w)
     results = {}
-    for name, (kernel, plain, nbytes) in calls.items():
-        got, ref = kernel(), plain()
-        err = float((got - ref).abs().max().item())
-        if name != "masked_row_min":
-            check(torch.allclose(got, ref, rtol=1e-5, atol=1e-6),
-                  f"{name} differs from its plain version (max abs {err})")
+    for name, (shape, (kernel, plain), case) in at.items():
         results[name] = {
-            "max_abs_err": err,
+            "shape": list(shape), "max_abs_err": case["errors"][name],
             "ms": time_ms(kernel, KERNEL_REPS),
-            "plain_ms": time_ms(plain, 5),
-            "library_ms": None,
-            **bound(name, nbytes, n * m, card),
+            "plain_ms": time_ms(plain, 5), "library_ms": None,
+            **bound(name, nbytes(name, shape), shape[0] * shape[1], card,
+                    case["candidates"]),
         }
-    emit({"phase": "kernels", "shape": [n, m], "card": card,
-          "counting_exact": True, **results})
-    del C, feasible, fz
+    # The row-only and column-only passes at the other path's shape too.
+    results["masked_row_matvec"]["wide_ms"] = time_ms(
+        w["ops"]["masked_row_matvec"][0], KERNEL_REPS)
+    results["masked_col_matvec"]["tier_ms"] = time_ms(
+        calls["masked_col_matvec"][0], KERNEL_REPS)
+    results["masked_sinkhorn_step"]["row_then_col_ms"] = time_ms(
+        row_then_col, KERNEL_REPS)
+    # The pass and its combine of block partials, apart, at the tier.
+    for name in ("masked_col_matvec", "masked_sinkhorn_step"):
+        results[name]["tier_kernel_split_ms"] = kernel_split_ms(
+            calls[name][0], KERNEL_REPS)
+    emit({"phase": "kernels", "card": card,
+          "shapes_checked": {"tier": [n, m], "wide": list(WIDE),
+                             "ragged": list(RAGGED),
+                             "wide_odd": [RAGGED[0], WIDE[1] + 1],
+                             "ties": [TIES_ROWS, m],
+                             "ties_wide": [TIES_ROWS, WIDE[1]]},
+          "counting_exact": True, "candidates": t["candidates"],
+          "wide_candidates": w["candidates"], **results})
+    del C, t, w, calls, at, pass_args, args
     torch.cuda.empty_cache()
     return results
 
@@ -357,8 +494,17 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
         check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
               "overflow not finite")
         check(math.isfinite(st["row_err"]), "row_err not finite")
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the main path")
+    # One mask packing per solve, one fused pass per Sinkhorn iteration,
+    # the row product alone only for the marginal-error gates, and no
+    # column-only pass at this width.
+    iters = sum(st["sinkhorn_iters_run"] for st in stats)
+    check(launches["masked_row_min"] == MAIN_SOLVES
+          and launches["masked_sinkhorn_step"] == iters
+          and launches["masked_col_matvec"] == 0,
+          f"sparse launches {launches} for {iters} Sinkhorn iterations")
+    for name in ("masked_row_min", "masked_row_matvec",
+                 "masked_sinkhorn_step"):
+        check(launches[name] > 0, f"{name} never launched on the main path")
     check(plan.num_models() == MAIN_FLEET[0], "plan lost models")
     inst = set(cols.instance_ids)
     for mid in cols.model_ids[:: MAIN_FLEET[0] // 1000]:
@@ -392,6 +538,38 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
     return result
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """name -> [device ms, count] of a torch.profiler run: device-side
+    activity only (kernels and copies); the host-side aten:: records would
+    count the same work twice."""
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0][:80]
+        slot = by_name.setdefault(name, [0.0, 0])
+        slot[0] += e.time_range.elapsed_us() / 1e3
+        slot[1] += 1
+    return by_name
+
+
+def kernel_split_ms(fn, reps: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {name: ms / reps
+            for name, (ms, _) in device_ms_by_kernel(prof).items()}
+
+
 def phase_profile(dev, cols, phase: str = "profile") -> None:
     """Where one solve's time goes: torch.profiler over one dispatch +
     finalize, device time by kernel name and the device's busy share of
@@ -406,17 +584,7 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
         finalize_plan(dispatch_solve(cols, seed=77, config=cfg, device=dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    # Device-side activity only (kernels and copies), grouped by name; the
-    # host-side aten:: records would count the same work twice.
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.replace("void ", "").replace(
-            "(anonymous namespace)::", "").split("(")[0][:80]
-        slot = by_name.setdefault(name, [0.0, 0])
-        slot[0] += e.time_range.elapsed_us() / 1e3
-        slot[1] += 1
+    by_name = device_ms_by_kernel(prof)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     emit({"phase": phase, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -426,10 +594,15 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
 
 
 def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
-                 path: str = "sparse") -> None:
+                 path: str = "sparse") -> dict:
+    """One snapshot solved on the card and on the CPU; returns the card
+    solve's sparse kernel launches (counters zeroed just before it)."""
     cols = steady_fleet(*fleet)
     cfg = solve_config_from_env()
+    torch.cuda.synchronize()
+    cuda_sparse.reset_launches()
     gpu_run = dispatch_solve(cols, seed=5, config=cfg, device=dev)
+    launches = dict(cuda_sparse.launches)
     cpu_run = dispatch_solve(cols, seed=5, config=cfg, device="cpu")
     check(gpu_run.path == cpu_run.path == path,
           f"{phase}: paths {gpu_run.path}/{cpu_run.path}, want {path}")
@@ -443,12 +616,29 @@ def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
     demand = demand_of(cols)
     d_over = abs(float(gpu.overflow.item()) - float(cpu.overflow.item()))
     emit({"phase": phase, "models": fleet[0], "instances": fleet[1],
+          "padded": list(gpu_run.sol.indices.shape[:1])
+          + list(gpu_run.sol.load.shape),
           "solver_path": path, "agreement": agree,
           "overflow_gpu": float(gpu.overflow.item()),
           "overflow_cpu": float(cpu.overflow.item()),
-          "overflow_diff_frac": d_over / demand})
-    check(agree >= 0.97, f"GPU/CPU placement agreement {agree}")
-    check(d_over <= 0.005 * demand, f"overflow differs by {d_over}")
+          "overflow_diff_frac": d_over / demand,
+          "sinkhorn_iters_run": gpu.sinkhorn_iters_run,
+          "launches": launches})
+    check(agree >= 0.97, f"{phase}: GPU/CPU placement agreement {agree}")
+    check(d_over <= 0.005 * demand, f"{phase}: overflow differs by {d_over}")
+    return {"launches": launches, "sinkhorn_iters_run": gpu.sinkhorn_iters_run}
+
+
+def phase_wide(dev) -> dict:
+    """The sparse path wider than the fused step: parity, and the row and
+    column products back to back on every Sinkhorn iteration."""
+    run = phase_parity(dev, WIDE_FLEET, "wide")
+    got, iters = run["launches"], run["sinkhorn_iters_run"]
+    check(got["masked_sinkhorn_step"] == 0,
+          f"wide: the fused step ran at a width above its limit: {got}")
+    check(got["masked_col_matvec"] == iters and got["masked_row_min"] == 1,
+          f"wide: launches {got} for {iters} Sinkhorn iterations")
+    return got
 
 
 @contextlib.contextmanager
@@ -596,11 +786,15 @@ def phase_dense_main(dev, cols) -> dict:
     return result
 
 
-def kernel_entries(table: dict, lib: str, launches: dict) -> list:
+def kernel_entries(table: dict, lib: str, launches: dict,
+                   solves: dict) -> list:
+    """The contract's kernel objects; ``launches`` by kernel, each from
+    the path that runs it, over that path's ``solves``."""
     return [
         {
             "name": name, "route": "cuda", "source": SOURCES[lib],
             "replaces": REPLACES[name], "launches": launches[name],
+            "solves": solves[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -624,14 +818,23 @@ def main() -> int:
     main_run = phase_main(dev, cols, time.perf_counter() - t0)
     phase_profile(dev, cols)
     phase_parity(dev)
+    wide_launches = phase_wide(dev)
     with dense_pin():
         dense_run = phase_dense_main(dev, cols)
         phase_profile(dev, cols, "dense_profile")
     phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
     print(card)
+    # The column-only kernel runs on the wide path alone (one solve; the
+    # main path's 1024 columns take the fused step).
+    sparse_launches = dict(main_run["launches"],
+                           masked_col_matvec=wide_launches["masked_col_matvec"])
+    sparse_solves = dict.fromkeys(sparse_launches, MAIN_SOLVES)
+    sparse_solves["masked_col_matvec"] = 1
     emit({"kernels": (
-        kernel_entries(kernels, "masked_sparse", main_run["launches"])
-        + kernel_entries(lse_kernels, "lse", dense_run["launches"])
+        kernel_entries(kernels, "masked_sparse", sparse_launches,
+                       sparse_solves)
+        + kernel_entries(lse_kernels, "lse", dense_run["launches"],
+                         dict.fromkeys(lse_kernels, MAIN_SOLVES))
     )})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

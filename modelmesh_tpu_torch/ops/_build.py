@@ -44,12 +44,13 @@ _F = ctypes.c_float
 # C signature of every exported function, by library.
 SIGNATURES: dict[str, dict[str, list]] = {
     "masked_sparse": {
-        "mm_masked_row_min": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-        "mm_masked_row_matvec": [
-            _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P,
-        ],
+        "mm_masked_row_min": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "mm_masked_row_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
         "mm_masked_col_matvec": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
+        ],
+        "mm_masked_sinkhorn_step": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
         ],
     },
     "lse": {

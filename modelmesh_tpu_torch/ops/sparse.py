@@ -6,9 +6,10 @@ Port of ``modelmesh_tpu/ops/sparse.py`` (the design notes are there):
    model's K cheapest instances by a noisy selection key, and keeps the
    row's K-th key as the threshold that defines the candidate mask.
 2. ``sparse_sinkhorn``: scaled-kernel Sinkhorn over the masked candidate
-   set, always through the fused kernels of ``cuda_sparse`` — the mask and
-   the scaled kernel are recomputed from C, the thresholds and the row hash
-   state on every pass and never materialized.
+   set, always through the kernels of ``cuda_sparse``: the mask is
+   evaluated once per solve from C, the thresholds and the row hash state
+   and packed into bits, and each iteration is one pass over C and the
+   bits; neither a bool mask nor the scaled kernel is materialized.
 3. ``sparse_auction``: price repair over the fixed gathered candidates.
 
 Rounding noise is the positional hash-Gumbel draw, a pure function of
@@ -42,12 +43,13 @@ from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, run_sinkhorn
 GATHER_TAU: float = 0.5
 _GATHER_SALT = 0x9E3779B9
 
-# Numerical floor shared by the scaled-kernel iterations.
-_TINY = 1e-30
+# Numerical floor shared by the scaled-kernel iterations (the fused step
+# clamps r to it).
+_TINY = cuda_sparse.TINY
 
 
 class FusedGather(NamedTuple):
-    """What the fused kernels need to recompute the candidate mask: the
+    """What ``masked_row_min`` needs to evaluate the candidate mask: the
     row's K-th selection key and the row-side hash state of the draw."""
 
     thresh: torch.Tensor  # f32[N] K-th (tie-inclusive) selection key
@@ -116,40 +118,45 @@ def sparse_sinkhorn(
         u = a / r
         g = min(0, eps * (log b - log(u @ P)))
 
-    with ``P = exp((rowmin - C) / eps) * mask`` applied by the fused
-    kernels, never built.
+    with ``P = exp((rowmin - C) / eps) * mask`` applied by the kernels,
+    never built. ``masked_row_min`` packs the mask once; up to
+    ``FUSED_MAX_COLS`` columns an iteration's two products are one fused
+    pass over C (``masked_sinkhorn_step``), wider they run back to back.
     """
     row_mass = row_mass.to(torch.float32)
     col_mass = col_mass.to(torch.float32)
     log_a = torch.log(torch.clamp_min(row_mass, _TINY))
     log_b = torch.log(torch.clamp_min(col_mass, _TINY))
-    mask_args = dict(tau=fused.tau, noised=fused.noised)
-    rowmin = cuda_sparse.masked_row_min(
-        C, fused.thresh, fused.x_row, **mask_args
+    rowmin, bits = cuda_sparse.masked_row_min(
+        C, fused.thresh, fused.x_row, tau=fused.tau, noised=fused.noised
     )
+    one_pass = C.shape[1] <= cuda_sparse.FUSED_MAX_COLS
 
-    def row_terms(g):
-        v = torch.exp(g / eps)
-        r = cuda_sparse.masked_row_matvec(
-            C, fused.thresh, fused.x_row, rowmin, v, eps=eps, **mask_args
-        )
+    def row_terms(v):
+        r = cuda_sparse.masked_row_matvec(C, bits, rowmin, v, eps=eps)
         return torch.clamp_min(r, _TINY)
+
+    def products(v):
+        """r = max(P @ v, tiny) and c = (a / r) @ P."""
+        if one_pass:
+            return cuda_sparse.masked_sinkhorn_step(
+                C, bits, rowmin, v, row_mass, eps=eps
+            )
+        r = row_terms(v)
+        u = row_mass / r                           # exp((f - rowmin) / eps)
+        return r, cuda_sparse.masked_col_matvec(C, bits, rowmin, u, eps=eps)
 
     def run_iters(f, g, length):
         for _ in range(length):
-            r = row_terms(g)
+            r, c = products(torch.exp(g / eps))
             f = eps * (log_a - torch.log(r)) + rowmin
-            u = row_mass / r                       # exp((f - rowmin) / eps)
-            c = cuda_sparse.masked_col_matvec(
-                C, fused.thresh, fused.x_row, rowmin, u, eps=eps, **mask_args
-            )
             g = torch.clamp_max(
                 eps * (log_b - torch.log(torch.clamp_min(c, _TINY))), 0.0
             )
         return f, g
 
     def marginal_err(f, g):
-        row_sum = torch.exp((f - rowmin) / eps) * row_terms(g)
+        row_sum = torch.exp((f - rowmin) / eps) * row_terms(torch.exp(g / eps))
         num = (row_sum - row_mass).abs().sum()
         return num / torch.clamp_min(row_mass.sum(), _TINY)
 

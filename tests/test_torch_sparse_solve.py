@@ -146,6 +146,50 @@ def test_cpu_solve_never_loads_kernels(problems, monkeypatch):
     assert all(v == 0 for v in cuda_sparse.launches.values())
 
 
+@pytest.fixture
+def kernel_calls(monkeypatch):
+    """Counts the sparse wrappers' calls (on the CPU they run their plain
+    versions; ``launches`` counts only kernel launches)."""
+    calls = dict.fromkeys(cuda_sparse.launches, 0)
+    for name in calls:
+        fn = getattr(cuda_sparse, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(cuda_sparse, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_sinkhorn_shape_rule(kernel_calls, wide):
+    """Up to FUSED_MAX_COLS instances an iteration is one fused step;
+    wider, the row and column products run back to back. Both routes
+    follow the reference: f32 placements and iteration counts equal."""
+    m = cuda_sparse.FUSED_MAX_COLS + 76 if wide else M
+    jp = ops.random_problem(jax.random.PRNGKey(1), 128, m,
+                            capacity_slack=1.6)
+    leaves = {f.name: np.asarray(getattr(jp, f.name))
+              for f in dataclasses.fields(jp)}
+    pair = (jp, problem_from_numpy(leaves, device="cpu"))
+    jax_sol, torch_sol = _pair(pair, "f32", **GATED)
+    assert _agreement(jax_sol, torch_sol) == 1.0
+    assert torch_sol.sinkhorn_iters_run == int(jax_sol.sinkhorn_iters_run)
+    # The whole budget: the probe and 3 chunks of 4, 3 marginal gates.
+    iters, gates = torch_sol.sinkhorn_iters_run, 3
+    assert iters == 13
+    assert kernel_calls["masked_row_min"] == 1
+    if wide:
+        assert kernel_calls["masked_sinkhorn_step"] == 0
+        assert kernel_calls["masked_col_matvec"] == iters
+        assert kernel_calls["masked_row_matvec"] == iters + gates
+    else:
+        assert kernel_calls["masked_sinkhorn_step"] == iters
+        assert kernel_calls["masked_col_matvec"] == 0
+        assert kernel_calls["masked_row_matvec"] == gates
+
+
 def test_dense_route_raises(problems):
     """topk = 0 or >= M routes dense (tests/test_torch_dense_solve.py holds
     that tier against the reference); there the sparse-only knob checks
