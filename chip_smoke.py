@@ -23,11 +23,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              step beside the row and column products back to back, and the
              column passes' device time split between the pass and the
              combine of its block partials (profiler).
-   lse_kernels — the two LSE kernels against their plain versions at the
-             same shape (LSE and running max at atol 1e-4 / rtol 1e-5),
-             the extreme-value case (C and shift x 30: finite, rtol 1e-5),
-             time per launch over a run of 20, and torch.logsumexp over a
-             materialized z as the library yardstick.
+   lse_kernels — the row-only, column-only and fused LSE kernels against
+             their plain versions at the tier, at the dense tier's real
+             widths ([131072, 128], [1000, 96], [1000, 64]), at a ragged
+             [1000, 1001] and, the column-only kernel's slabs, at the wide
+             path's [12288, 1536] and an odd [1000, 1537] (LSE, running max
+             and the fused step's f at atol 1e-4 / rtol 1e-5), the extreme
+             case at the tier (C and shifts x 30: finite, rtol 1e-5), z of
+             one row bit for bit; time per launch over a run of 20 at the
+             tier, at [131072, 128] and at [12288, 1536], beside the bound,
+             the plain version and torch.logsumexp over a materialized z;
+             the fused step beside the row and column kernels back to back,
+             and its device time split between pass and combine.
 3. main    — the production dispatch at 100,000 models x 1,000 instances
              (synthetic fleet at 85% utilization): snapshot_columns ->
              dispatch_solve -> finalize_plan on the sparse path, one warm-up
@@ -46,12 +53,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. dense_main — the same 100k x 1k fleet on the dense tier (the
              reference's "full Sinkhorn", pinned with MM_SOLVER_SPARSE=0
              around the phase): one warm-up, 5 solves with the default
-             config, LSE launch counters zeroed just before; then one solve
-             with the steady gates, and the tie-stable top-k against
-             torch.sort / torch.topk at the auction's shortlist shape.
+             config, LSE launch counters zeroed just before (per solve: one
+             fused step per Sinkhorn iteration, one row-only pass, no
+             column-only pass, one host sync); then one solve with the
+             steady gates, and the tie-stable top-k against torch.sort /
+             torch.topk at the auction's shortlist shape.
    dense_profile — one dense solve under torch.profiler.
 6. dense_parity — a 10,000 x 128 snapshot, which the auto rule routes
              dense, on the card and on the CPU, with phase 4's gates.
+7. dense_wide — the wide fleet (10,000 x 1,200, 1536 padded columns)
+             pinned dense, on the card and on the CPU, with phase 4's
+             gates: the row and column LSE back to back on every
+             iteration, no fused step; the column-only kernel's path.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -105,11 +118,12 @@ PEAK_F32_OPS_PER_S = 67e12
 # subtract), the mask test and the min, on every element. The bit-reading
 # kernels: a bit test and a convert per element; per candidate a subtract,
 # a divide, an exp and a multiply-add (the fused step one more
-# multiply-add, for the column). The LSE kernels: subtract, divide, max,
-# subtract, exp, add.
+# multiply-add, for the column). The LSE kernels: subtract, scale, max,
+# subtract, exp, add; the fused LSE step both reductions.
 OPS_PER_ELEMENT = {"masked_row_min": 20, "masked_row_matvec": 2,
                    "masked_col_matvec": 2, "masked_sinkhorn_step": 2,
-                   "row_lse_partial": 6, "col_lse_partial": 6}
+                   "row_lse_partial": 6, "col_lse_partial": 6,
+                   "lse_sinkhorn_step": 12}
 OPS_PER_CANDIDATE = {"masked_row_matvec": 5, "masked_col_matvec": 5,
                      "masked_sinkhorn_step": 7}
 REPLACES = {
@@ -120,10 +134,21 @@ REPLACES = {
                              "modelmesh_tpu/ops/pallas_sparse.py:260"),
     "row_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:130",
     "col_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:167",
+    "lse_sinkhorn_step": ("modelmesh_tpu/ops/pallas_lse.py:130, "
+                          "modelmesh_tpu/ops/pallas_lse.py:167"),
 }
 SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
            "lse": "modelmesh_tpu_torch/csrc/lse.cu"}
 LSE_EPS = 0.05
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+# Where the LSE kernels are held against their plain versions: the tier,
+# the dense tier's real widths (128 at 100k models; 96 and 64), ragged C,
+# and the column-only kernel's slabs (the wide path's shape and an odd
+# width); the extreme case runs at the tier.
+LSE_SHAPES = {"tier": TIER, "narrow": (131072, 128), "w96": (1000, 96),
+              "w64": (1000, 64), "ragged": RAGGED, "wide": WIDE,
+              "wide_odd": (1000, 1537)}
+LSE_TIMED = ("tier", "narrow", "wide")
 SPARSE_EPS = 0.05
 SPARSE_K = 24
 SPARSE_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -374,77 +399,195 @@ def phase_kernels(dev, card: str) -> dict:
     return results
 
 
-def phase_lse_kernels(dev, card: str) -> dict:
-    """Kernels 4-5 against their plain versions at the tier's shape."""
-    n, m = TIER
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    C = (torch.randn((n, m), generator=gen, device=dev) * 3.0).to(
-        torch.bfloat16
-    )
-    g = torch.randn(m, generator=gen, device=dev)
-    f = torch.randn(n, generator=gen, device=dev)
-    tol = dict(atol=1e-4, rtol=1e-5)
-    cases = {
-        "row_lse_partial": (cuda_lse.row_lse_partial,
-                            cuda_lse.row_lse_partial_ref, g, 1,
-                            lambda sh: sh[None, :]),
-        "col_lse_partial": (cuda_lse.col_lse_partial,
-                            cuda_lse.col_lse_partial_ref, f, 0,
-                            lambda sh: sh[:, None]),
+def lse_operands(shape, gen, scale: float = 1.0) -> dict:
+    """C ~ 3 N(0, 1) in bf16, g, f ~ N(0, 1) and log_a of masses in
+    [1, 9), from ``gen``; C and the shifts times ``scale``."""
+    n, m = shape
+    dev = gen.device
+    C = (torch.randn((n, m), generator=gen, device=dev) * (3.0 * scale)).to(
+        torch.bfloat16)
+    return {"C": C,
+            "g": torch.randn(m, generator=gen, device=dev) * scale,
+            "f": torch.randn(n, generator=gen, device=dev) * scale,
+            "log_a": torch.log(torch.rand(n, generator=gen, device=dev) * 8
+                               + 1)}
+
+
+def lse_calls(op: dict) -> dict:
+    """name -> (kernel call, plain call) of every LSE wrapper that takes
+    C's width; each returns a tuple of tensors."""
+    C, g, f, log_a = op["C"], op["g"], op["f"], op["log_a"]
+    calls = {
+        "row_lse_partial": (
+            lambda: cuda_lse.row_lse_partial(C, g, LSE_EPS),
+            lambda: cuda_lse.row_lse_partial_ref(C, g, LSE_EPS)),
+        "col_lse_partial": (
+            lambda: cuda_lse.col_lse_partial(C, f, LSE_EPS),
+            lambda: cuda_lse.col_lse_partial_ref(C, f, LSE_EPS)),
     }
-    # The unvectorized paths: an odd width (no 16-byte or bf16x2 loads) and
-    # a ragged last row chunk.
-    Cr = C[:1000, :1001].contiguous()
-    for name, (kernel, plain, shift, axis, _) in cases.items():
-        sr = shift[:1001] if axis == 1 else shift[:1000]
-        got = cuda_lse.lse_of(*kernel(Cr, sr, LSE_EPS))
-        want = cuda_lse.lse_of(*plain(Cr, sr, LSE_EPS))
-        check(torch.allclose(got, want, **tol),
-              f"{name}: ragged [1000, 1001] LSE differs "
-              f"(max abs {float((got - want).abs().max().item())})")
-    del Cr
-    results = {}
-    for name, (kernel, plain, shift, axis, bcast) in cases.items():
-        (km, ks), (pm, ps) = kernel(C, shift, LSE_EPS), plain(C, shift, LSE_EPS)
+    if C.shape[1] <= cuda_lse.FUSED_MAX_COLS:
+        calls["lse_sinkhorn_step"] = (
+            lambda: cuda_lse.lse_sinkhorn_step(C, g, log_a, LSE_EPS),
+            lambda: cuda_lse.lse_sinkhorn_step_ref(C, g, log_a, LSE_EPS))
+    return calls
+
+
+def max_abs(a, b) -> float:
+    return float((a - b).abs().max().item())
+
+
+def check_lse_kernels(op: dict, tag: str, tol: dict = LSE_TOL) -> dict:
+    """Every LSE kernel that takes C's width against its plain version:
+    the LSE and the running max within ``tol``, the fused step's f too.
+    On the card the kernels' z is the plain z bit for bit, so the running
+    maxima are compared bitwise as well (counted), and the fused step
+    against the row and column kernels run back to back on the same
+    operands (bitwise, counted). Returns the errors by kernel."""
+    errors, bitwise = {}, {}
+    out = {}
+    for name, (kernel, plain) in lse_calls(op).items():
+        got, ref = kernel(), plain()
+        out[name] = got
+        *lead, km, ks = got
+        *_, pm, ps = ref
         lse, lse_ref = cuda_lse.lse_of(km, ks), cuda_lse.lse_of(pm, ps)
-        err = float((lse - lse_ref).abs().max().item())
+        errors[name] = max_abs(lse, lse_ref)
+        check(bool(torch.isfinite(lse).all()), f"{tag}: {name} not finite")
         check(torch.allclose(lse, lse_ref, **tol),
-              f"{name}: LSE differs from the plain version (max abs {err})")
-        check(torch.allclose(km, pm, **tol), f"{name}: running max differs")
-        # Extreme values: |z| of order 1e3 and more.
-        Cx = (C.to(torch.float32) * 30.0).to(torch.bfloat16)
-        xk = cuda_lse.lse_of(*kernel(Cx, shift * 30.0, LSE_EPS))
-        xp = cuda_lse.lse_of(*plain(Cx, shift * 30.0, LSE_EPS))
-        check(bool(torch.isfinite(xk).all()), f"{name}: extreme LSE not finite")
-        check(torch.allclose(xk, xp, rtol=1e-5, atol=0.0),
-              f"{name}: extreme LSE differs "
-              f"(max abs {float((xk - xp).abs().max().item())})")
-        del Cx, xk, xp
-        # Library yardstick: torch.logsumexp over a materialized f32 z.
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        z = (bcast(shift) - C.to(torch.float32)) / LSE_EPS
-        torch.cuda.synchronize()
-        z_build_ms = (time.perf_counter() - t) * 1e3
-        library_ms = time_ms(lambda: torch.logsumexp(z, dim=axis), KERNEL_REPS)
-        lib_err = float((torch.logsumexp(z, dim=axis) - lse).abs().max().item())
-        del z
-        out_len = n if axis == 1 else m
-        results[name] = {
-            "max_abs_err": err,
-            "max_abs_err_vs_library": lib_err,
-            "ms": time_ms(lambda: kernel(C, shift, LSE_EPS), KERNEL_REPS),
-            "plain_ms": time_ms(lambda: plain(C, shift, LSE_EPS), 5),
-            "library_ms": library_ms,
-            "library_z_build_ms": z_build_ms,
-            **bound(name, n * m * 2 + shift.numel() * 4 + 2 * out_len * 4,
-                    n * m, card),
-        }
-    emit({"phase": "lse_kernels", "shape": [n, m], "eps": LSE_EPS,
-          "card": card, "ragged_shape_checked": [1000, 1001], **results})
-    del C
-    torch.cuda.empty_cache()
+              f"{tag}: {name}'s LSE differs from the plain version "
+              f"(max abs {errors[name]})")
+        check(torch.allclose(km, pm, **tol),
+              f"{tag}: {name}'s running max differs "
+              f"(max abs {max_abs(km, pm)})")
+        bitwise[f"{name}_max_differs"] = int((km != pm).sum().item())
+        if lead:
+            err_f = max_abs(lead[0], ref[0])
+            errors[name] = max(errors[name], err_f)
+            check(torch.allclose(lead[0], ref[0], **tol),
+                  f"{tag}: {name}'s f differs (max abs {err_f})")
+    if "lse_sinkhorn_step" in out:
+        # The unfused iteration on the kernels: row, f, column.
+        f, cm, cs = out["lse_sinkhorn_step"]
+        f_pair = LSE_EPS * (op["log_a"]
+                            - cuda_lse.lse_of(*out["row_lse_partial"]))
+        pm, ps = cuda_lse.col_lse_partial(op["C"], f, LSE_EPS)
+        bitwise["step_f_vs_row_kernel_differs"] = int(
+            (f != f_pair).sum().item())
+        bitwise["step_col_vs_col_kernel_differs"] = int(
+            ((cm != pm) | (cs != ps)).sum().item())
+    return {"errors": errors, "bitwise": bitwise}
+
+
+def check_z_bitwise(op: dict, tag: str) -> None:
+    """z of one row, bit for bit: over a single row the column kernel's
+    running max is z itself (and its rescaled sum 1)."""
+    C1, f1 = op["C"][:1].contiguous(), op["f"][:1].contiguous()
+    m1, s1 = cuda_lse.col_lse_partial(C1, f1, LSE_EPS)
+    z = ((f1[:, None] - C1.to(torch.float32)) / LSE_EPS)[0]
+    check(torch.equal(m1.view(torch.int32), z.view(torch.int32)),
+          f"{tag}: the kernel's z of row 0 differs bitwise from the plain "
+          f"z ({int((m1 != z).sum().item())} of {z.numel()} columns)")
+    check(bool((s1 == 1.0).all()), f"{tag}: single-row sums differ from 1")
+
+
+def lse_nbytes(name: str, shape) -> int:
+    """Bytes the function must move: its inputs once, its outputs once."""
+    n, m = shape
+    return n * m * 2 + {
+        "row_lse_partial": m * 4 + 2 * n * 4,
+        "col_lse_partial": n * 4 + 2 * m * 4,
+        "lse_sinkhorn_step": m * 4 + n * 4 + n * 4 + 2 * m * 4,
+    }[name]
+
+
+def lse_library(op: dict, name: str):
+    """One PyTorch call for the same function, timed: torch.logsumexp
+    over a materialized f32 z (the row or column kernel); the fused step
+    has none. Returns (ms, ms to build z) or (None, None)."""
+    if name == "lse_sinkhorn_step":
+        return None, None
+    C = op["C"]
+    row = name == "row_lse_partial"
+    shift = op["g"][None, :] if row else op["f"][:, None]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    z = (shift - C.to(torch.float32)) / LSE_EPS
+    torch.cuda.synchronize()
+    z_ms = (time.perf_counter() - t) * 1e3
+    ms = time_ms(lambda: torch.logsumexp(z, dim=1 if row else 0),
+                 KERNEL_REPS)
+    del z
+    return ms, z_ms
+
+
+def phase_lse_kernels(dev, card: str) -> dict:
+    """Kernels 4-5 and the fused step against their plain versions at every
+    width their paths give them, timed at the tier, at the dense tier's
+    real width and (the column-only kernel) at the wide path's shape."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    checked, bitwise, timed = {}, {}, {}
+    for tag, shape in LSE_SHAPES.items():
+        op = lse_operands(shape, gen)
+        check_z_bitwise(op, tag)
+        case = check_lse_kernels(op, tag)
+        checked[tag] = {"shape": list(shape), "max_abs_err": case["errors"]}
+        bitwise[tag] = case["bitwise"]
+        if tag in LSE_TIMED:
+            timed[tag] = lse_times(op, case["errors"], card)
+        if tag == "tier":
+            # Extreme values: |z| of order 1e3 and more.
+            x = lse_operands(shape, gen, scale=30.0)
+            xcase = check_lse_kernels(x, "extreme",
+                                      dict(rtol=1e-5, atol=0.0))
+            checked["extreme"] = {"shape": list(shape), "scale": 30.0,
+                                  "max_abs_err": xcase["errors"]}
+            del x
+        del op
+        torch.cuda.empty_cache()
+    # Each kernel at the shape its path gives it: the row-only kernel and
+    # the fused step at the dense main path's, the column-only kernel at
+    # the wide path's (the main path takes the fused step).
+    results = {name: dict(timed["tier"][name]) for name in
+               ("row_lse_partial", "lse_sinkhorn_step")}
+    results["col_lse_partial"] = dict(timed["wide"]["col_lse_partial"])
+    for name, entry in results.items():
+        for tag, by_name in timed.items():
+            if name in by_name:
+                entry[f"{tag}_ms"] = by_name[name]["ms"]
+                entry[f"{tag}_bound_ms"] = by_name[name]["bound_ms"]
+    emit({"phase": "lse_kernels", "eps": LSE_EPS, "card": card,
+          "checked": checked, "bitwise": bitwise, "timed": timed})
     return results
+
+
+def lse_times(op: dict, errors: dict, card: str) -> dict:
+    """Per-launch times of the LSE kernels on ``op`` beside their bound,
+    plain version and library call; the fused step's pass and combine
+    apart (profiler) and the unfused iteration back to back."""
+    shape = tuple(op["C"].shape)
+    out = {}
+    for name, (kernel, plain) in lse_calls(op).items():
+        library_ms, z_ms = lse_library(op, name)
+        out[name] = {
+            "shape": list(shape), "max_abs_err": errors[name],
+            "ms": time_ms(kernel, KERNEL_REPS),
+            "plain_ms": time_ms(plain, 5),
+            "library_ms": library_ms, "library_z_build_ms": z_ms,
+            **bound(name, lse_nbytes(name, shape), shape[0] * shape[1], card),
+        }
+    if "lse_sinkhorn_step" in out:
+        C, g, log_a = op["C"], op["g"], op["log_a"]
+
+        def row_then_col():
+            """The unfused iteration: row LSE, f, column LSE."""
+            f = LSE_EPS * (log_a - cuda_lse.row_lse(C, g, LSE_EPS))
+            cuda_lse.col_lse_partial(C, f, LSE_EPS)
+
+        step = out["lse_sinkhorn_step"]
+        step["row_then_col_ms"] = time_ms(row_then_col, KERNEL_REPS)
+        step["kernel_split_ms"] = kernel_split_ms(lse_calls(op)[
+            "lse_sinkhorn_step"][0], KERNEL_REPS)
+    return out
 
 
 def steady_fleet(n: int, m: int):
@@ -596,13 +739,15 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
 def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
                  path: str = "sparse") -> dict:
     """One snapshot solved on the card and on the CPU; returns the card
-    solve's sparse kernel launches (counters zeroed just before it)."""
+    solve's kernel launches, sparse and LSE (counters zeroed just before
+    it)."""
     cols = steady_fleet(*fleet)
     cfg = solve_config_from_env()
     torch.cuda.synchronize()
     cuda_sparse.reset_launches()
+    cuda_lse.reset_launches()
     gpu_run = dispatch_solve(cols, seed=5, config=cfg, device=dev)
-    launches = dict(cuda_sparse.launches)
+    launches = dict(cuda_sparse.launches, **cuda_lse.launches)
     cpu_run = dispatch_solve(cols, seed=5, config=cfg, device="cpu")
     check(gpu_run.path == cpu_run.path == path,
           f"{phase}: paths {gpu_run.path}/{cpu_run.path}, want {path}")
@@ -638,6 +783,25 @@ def phase_wide(dev) -> dict:
           f"wide: the fused step ran at a width above its limit: {got}")
     check(got["masked_col_matvec"] == iters and got["masked_row_min"] == 1,
           f"wide: launches {got} for {iters} Sinkhorn iterations")
+    return got
+
+
+def phase_dense_wide(dev) -> dict:
+    """The dense tier wider than the fused LSE step: the wide fleet pinned
+    dense (12288 x 1536), parity, and the row and column LSE back to back
+    on every Sinkhorn iteration: the column-only kernel's path."""
+    with dense_pin():
+        run = phase_parity(dev, WIDE_FLEET, "dense_wide", "dense")
+    got, iters = run["launches"], run["sinkhorn_iters_run"]
+    check(got["lse_sinkhorn_step"] == 0,
+          f"dense_wide: the fused step ran at a width above its limit: {got}")
+    # Each iteration a row and a column pass, and the row pass of the
+    # final marginal error.
+    check(got["col_lse_partial"] == iters
+          and got["row_lse_partial"] == iters + 1,
+          f"dense_wide: launches {got} for {iters} Sinkhorn iterations")
+    for name in ("row_lse_partial", "col_lse_partial"):
+        check(got[name] > 0, f"{name} never launched on the dense_wide path")
     return got
 
 
@@ -724,15 +888,20 @@ def phase_dense_main(dev, cols) -> dict:
         check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
               "overflow not finite")
         check(math.isfinite(st["row_err"]), "row_err not finite")
-    # Fixed budget: one row and one column LSE per iteration, plus the
-    # row LSE of the final marginal error.
+    # Fixed budget: one fused step per iteration, the row LSE of the final
+    # marginal error, no column-only pass at this width; and one host sync,
+    # the readback.
     iters = cfg.sinkhorn_iters
-    want = {"row_lse_partial": iters + 1, "col_lse_partial": iters}
+    want = {"lse_sinkhorn_step": iters, "row_lse_partial": 1,
+            "col_lse_partial": 0}
     per_solve = {k: c / MAIN_SOLVES for k, c in launches.items()}
     if cfg.sinkhorn_tol <= 0:
         check(per_solve == want, f"LSE launches per solve {per_solve}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the dense path")
+        if cfg.auction_stall_tol <= 0:
+            check(syncs == MAIN_SOLVES,
+                  f"{syncs / MAIN_SOLVES} host syncs per dense solve")
+    for name in ("lse_sinkhorn_step", "row_lse_partial"):
+        check(launches[name] > 0, f"{name} never launched on the dense path")
     check(all(c == 0 for c in sparse_launches.values()),
           f"sparse kernels ran on the dense path: {sparse_launches}")
     check(plan.num_models() == MAIN_FLEET[0], "plan lost models")
@@ -787,14 +956,17 @@ def phase_dense_main(dev, cols) -> dict:
 
 
 def kernel_entries(table: dict, lib: str, launches: dict,
-                   solves: dict) -> list:
+                   cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
-    the path that runs it, over that path's ``solves``."""
+    the run of the cell that runs it, ``cells`` by kernel: (cell, solves
+    in that run)."""
     return [
         {
             "name": name, "route": "cuda", "source": SOURCES[lib],
             "replaces": REPLACES[name], "launches": launches[name],
-            "solves": solves[name],
+            "cell": cells[name][0], "solves": cells[name][1],
+            "launches_per_solve": launches[name] / cells[name][1],
+            "shape": k["shape"],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
@@ -823,18 +995,22 @@ def main() -> int:
         dense_run = phase_dense_main(dev, cols)
         phase_profile(dev, cols, "dense_profile")
     phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
+    dense_wide_launches = phase_dense_wide(dev)
     print(card)
-    # The column-only kernel runs on the wide path alone (one solve; the
-    # main path's 1024 columns take the fused step).
+    # The column-only kernels run on the wide paths alone (one solve each;
+    # the main paths' 1024 columns take the fused steps).
     sparse_launches = dict(main_run["launches"],
                            masked_col_matvec=wide_launches["masked_col_matvec"])
-    sparse_solves = dict.fromkeys(sparse_launches, MAIN_SOLVES)
-    sparse_solves["masked_col_matvec"] = 1
+    sparse_cells = dict.fromkeys(sparse_launches, ("main", MAIN_SOLVES))
+    sparse_cells["masked_col_matvec"] = ("wide", 1)
+    lse_launches = dict(dense_run["launches"],
+                        col_lse_partial=dense_wide_launches["col_lse_partial"])
+    lse_cells = dict.fromkeys(lse_launches, ("dense_main", MAIN_SOLVES))
+    lse_cells["col_lse_partial"] = ("dense_wide", 1)
     emit({"kernels": (
         kernel_entries(kernels, "masked_sparse", sparse_launches,
-                       sparse_solves)
-        + kernel_entries(lse_kernels, "lse", dense_run["launches"],
-                         dict.fromkeys(lse_kernels, MAIN_SOLVES))
+                       sparse_cells)
+        + kernel_entries(lse_kernels, "lse", lse_launches, lse_cells)
     )})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 // Fused potential-shifted log-sum-exp partials of the dense Sinkhorn, for
-// Hopper (sm_90a). Two kernels, one per reduction axis:
+// Hopper (sm_90a). Three functions over the bf16 cost matrix C:
 //
-//   row: z[n, m] = (g[m] - C[n, m]) / eps, reduced over m -> (mx[n], s[n])
-//   col: z[n, m] = (f[n] - C[n, m]) / eps, reduced over n -> (mx[m], s[m])
+//   row:  z[n, m] = (g[m] - C[n, m]) * inv_eps, over m -> (mx[n], s[n])
+//   col:  z[n, m] = (f[n] - C[n, m]) * inv_eps, over n -> (mx[m], s[m])
+//   step: one Sinkhorn iteration's pair in one pass over C: the row
+//         reduction of g, f[n] = eps * (log_a[n] - LSE_n), then the column
+//         reduction of that f
 //
 // with mx the maximum of z and s = sum exp(z - mx), so that
 // LSE = log(max(s, 1e-30)) + mx. Partials over disjoint slices combine as
@@ -11,36 +14,76 @@
 //
 // which is how the kernels reduce internally and how a sharded solver
 // combines ranks. Neither z nor an f32 copy of C ever exists in device
-// memory: each launch streams the bf16 cost matrix once.
+// memory: each launch streams C once.
 //
 // Replaces the Pallas TPU kernels of modelmesh_tpu/ops/pallas_lse.py:
-//   row_lse_kernel                        <- row_lse_partial (_partial_kernel,
-//                                            axis=1)
-//   col_partial_kernel/col_combine_kernel <- col_lse_partial (_partial_kernel,
-//                                            axis=0)
+//   dense_row_kernel                   <- row_lse_partial (_partial_kernel,
+//                                         axis=1)
+//   dense_col_kernel<false> + combine  <- col_lse_partial (_partial_kernel,
+//                                         axis=0)
+//   dense_col_kernel<true> + combine   <- row_lse_partial, then
+//                                         col_lse_partial, of one dense
+//                                         Sinkhorn iteration
 //
-// Bound. Each launch must read C once (N*M*2 bytes) plus the shift vector
-// and write two f32 vectors: 268.4 MB at the 131072 x 1024 tier, about
-// 80 us at the H100 SXM's 3.35 TB/s. Per element the kernels spend one
-// subtract, one division, a max, one expf and an add: six f32 operations
-// by the data sheet's count, about 12 us at 67 TFLOP/s, so the bound is
-// bytes. The IEEE division and expf are several instructions each, so
-// the instruction stream is several times that count. The design reads C
-// exactly once with no padded copy (ragged edges are bounds-checked; the
-// Pallas path pads C to 256 x 512 tiles), 16-byte vector loads on the row
-// kernel and 4-byte bf16x2 loads on the column kernel (a warp reads 128
-// contiguous bytes per row).
+// Bound. A pass must read C once (N * M * 2 bytes): 268.4 MB at the
+// 131072 x 1024 tier, about 80 us at the H100 SXM's 3.35 TB/s. By the data
+// sheet's count the f32 work is a few operations per element, far under
+// that; but non-fast-math expf is about eight instructions, so a reduction
+// issues some fifteen instructions per element and the fused step some
+// thirty: at the tier that is 60-140 us of instruction issue on 132 SMs,
+// the same order as the bytes. (On the H100 the fused pass takes about 2.8x
+// the byte bound whatever the load staging or occupancy: it is bound by
+// instruction issue; PERF.md.) The design therefore spends as few
+// instructions per element as it can and keeps enough loads in flight to
+// stay near the byte bound:
 //
-// The Pallas kernel carries the column accumulator across a sequential row
-// grid in VMEM. Blocks run in parallel here, so the column reduction is two
-// passes: per-chunk partials (ROWS_PER_CHUNK rows each) to an f32 scratch
-// the wrapper allocates, then a fixed-order combine over the chunks. No
-// float atomics: both kernels are deterministic.
+// - z is a subtract and a multiply by inv_eps, never an IEEE division.
+// - Layout. A row group of `lanes` lanes owns a row (lanes = 32 at 1024
+//   columns; 16, 8 or 4 at narrower widths, so that a warp holds 2-8 rows
+//   at once and at least 3/4 of its lanes hold data at the dense tier's
+//   padded widths 64, 96, 128, ...). Lane i of a group loads chunks i,
+//   i + lanes, ... of the row: kSlots (2-4) 16-byte loads of 8 bf16 each.
+//   The column kernels issue the next rows' loads before the current
+//   row's arithmetic (a cp.async ring in shared memory), so 2 x kSlots
+//   loads per lane are in flight while it computes.
+// - Row side: per chunk the max of its 8 z, the sum of exp(z - max), one
+//   combine into the lane's (mx, s) (one expf per element); then the lanes
+//   of the group combine in a fixed xor-shuffle order.
+// - Column side: lane i owns the same columns for every row its group
+//   walks, so its column partials stay in registers (kSlots x 8 x 2
+//   floats). Each element folds into its column's (m, s) with one expf and
+//   no branch (fold below).
+// - The fused step (dense_col_kernel<true>): f[n] needs only row n, so the
+//   group that has just reduced row n computes f[n] and folds the same
+//   registers into its column partials at once. C is read once per
+//   iteration instead of twice. g (at most 4 KB) sits in shared memory.
 //
-// Numerics. z is computed as a division, as the XLA reference (_row_lse)
-// and the plain PyTorch versions spell it (Pallas multiplies by 1/eps).
-// Built without fast math, so expf is the one PyTorch's CUDA exp calls.
-// Two empty partials (m = -inf on both sides) combine to s = 0, not NaN.
+// Column reduction across rows. The Pallas kernel carries the column
+// accumulator across a sequential row grid in VMEM; blocks here run in
+// parallel. Each block covers a fixed number of rows (the wrapper's
+// constant, so the combine order does not depend on the card); every lane
+// of every warp writes its column partials to shared memory, the block's
+// threads combine them in (warp, group) order and write one partial row to
+// an f32 scratch, and col_combine_kernel combines the block rows in a fixed
+// order. No float atomics: every kernel is deterministic. The column-only
+// kernel takes C wider than 1024 columns as equal slabs of at most 1024
+// columns, one per grid.x; the row-only kernel walks such slabs along the
+// row.
+//
+// Ragged or unaligned C (width not a multiple of 8, or rows not 16-byte
+// aligned) takes the same kernels with bounds-checked scalar loads.
+//
+// Numerics. z is __fmul_rn(__fsub_rn(shift, c), inv_eps) with inv_eps =
+// 1.0f / eps formed on the host in f32: what PyTorch's CUDA division by a
+// scalar computes (it multiplies by opmath_t(1) / b), so a kernel's z is bit
+// for bit the card's plain z. f is eps * (log_a - (log(max(s, 1e-30)) +
+// mx)) in the operation order of those PyTorch ops. Built without fast math
+// and with --fmad=false, so expf and logf are the ones PyTorch's CUDA exp
+// and log call and no multiply-add is contracted. On the same (C, g) and
+// width, the fused step's row side and dense_row_kernel run the same
+// arithmetic in the same order, as do its column side and
+// dense_col_kernel<false> given the same f. Two empty partials (m = -inf on
+// both sides) combine to s = 0, not NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,137 +92,387 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block, every kernel
-constexpr int kColTile = 256;  // row shifts staged in shared memory per step
-constexpr int kCombineCols = 32;   // columns per combine block
-constexpr int kCombineLanes = 16;  // chunk walkers per column
+constexpr int kThreads = 256;  // threads per block, row and column kernels
+constexpr int kWarps = kThreads / 32;
+constexpr int kVec = 8;             // bf16 per 16-byte chunk
+constexpr int kMaxSlots = 4;        // 16-byte loads per lane per row
+constexpr int kSlabChunks = 32 * kMaxSlots;  // 128 chunks: 1024 columns
+constexpr int kRing = 3;            // column kernels: row iterations staged
+constexpr int kRowBlockRows = 64;   // rows per block of the row kernel
+constexpr int kCombineCols = 32;    // columns per combine block
+constexpr int kCombineLanes = 16;   // chunk walkers per column
+constexpr float kTiny = 1e-30f;     // floor of s before the log
 
-// exp(a - mx) for a <= mx, with an empty partial (a = -inf) giving 0 even
-// when mx is -inf too.
-__device__ __forceinline__ float exp_below(float a, float mx) {
-  return a == -INFINITY ? 0.0f : expf(__fsub_rn(a, mx));
-}
-
-// (m, s) <- (m, s) combined with (m2, s2); one expf.
+// (m, s) <- (m, s) combined with (m2, s2); one expf, no branch (the lanes
+// of a warp may disagree on which side is larger). The exponent is -inf
+// when the smaller side is empty (m = -inf), so an empty partial adds 0
+// even when both are empty.
 __device__ __forceinline__ void combine(float& m, float& s, float m2,
                                         float s2) {
-  if (m2 > m) {
-    s = __fadd_rn(__fmul_rn(s, exp_below(m, m2)), s2);
-    m = m2;
-  } else {
-    s = __fadd_rn(s, __fmul_rn(s2, exp_below(m2, m)));
-  }
+  const bool up = m2 > m;
+  const float lo = up ? m : m2;
+  const float hi = up ? m2 : m;
+  const float e = expf(lo == -INFINITY ? -INFINITY : __fsub_rn(lo, hi));
+  s = up ? __fadd_rn(__fmul_rn(s, e), s2) : __fadd_rn(s, __fmul_rn(s2, e));
+  m = hi;
 }
 
-__device__ __forceinline__ float shifted(float shift, float c, float eps) {
-  return __fdiv_rn(__fsub_rn(shift, c), eps);
+// combine(m, s, z, 1) for a finite z, bit for bit, in fewer instructions:
+// exp(-|z - m|) is the exponent on either side (negation is exact), and is
+// 0 while the partial is empty (m = -inf).
+__device__ __forceinline__ void fold(float& m, float& s, float z) {
+  const float e = expf(-fabsf(__fsub_rn(z, m)));
+  const bool up = z > m;
+  s = up ? __fadd_rn(__fmul_rn(s, e), 1.0f) : __fadd_rn(s, e);
+  m = up ? z : m;
 }
 
-// One warp per row; each lane folds groups of 8 columns into its (m, s),
-// then the lanes combine in a fixed xor-shuffle tree.
-__global__ void __launch_bounds__(kThreads)
-row_lse_kernel(const __nv_bfloat16* __restrict__ C,
-               const float* __restrict__ g, float* __restrict__ m_out,
-               float* __restrict__ s_out, int n, int m, float eps,
-               int vec_ok) {
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;  // whole warps leave together
-  const __nv_bfloat16* p = C + static_cast<size_t>(row) * m;
-  float mx = -INFINITY;
-  float s = 0.0f;
+__device__ __forceinline__ float shifted(float shift, float c, float inv_eps) {
+  return __fmul_rn(__fsub_rn(shift, c), inv_eps);
+}
 
-  if (vec_ok) {
-    const uint4* p4 = reinterpret_cast<const uint4*>(p);
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    const int chunks = m / kVec;
-    for (int j = lane; j < chunks; j += 32) {
-      const uint4 raw = __ldg(p4 + j);
-      const auto* c = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      const float4 ga = __ldg(g4 + 2 * j);
-      const float4 gb = __ldg(g4 + 2 * j + 1);
-      const float gv[kVec] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-      float z[kVec];
-      float zmax = -INFINITY;
+// Element t (0-7) of a chunk of 8 bf16: the conversion to f32 is exact.
+__device__ __forceinline__ float elem(const uint4& q, int t) {
+  const uint32_t w = t < 2 ? q.x : t < 4 ? q.y : t < 6 ? q.z : q.w;
+  return __uint_as_float((t & 1) ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// Chunk j of a row (columns 8 j .. 8 j + 7), zero past column m: one
+// 16-byte load when rows are 16-byte aligned, else bounds-checked scalars.
+template <bool kAligned>
+__device__ __forceinline__ uint4 load_chunk(const __nv_bfloat16* row, int j,
+                                            int m) {
+  if (kAligned) return __ldg(reinterpret_cast<const uint4*>(row) + j);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int t = 0; t < kVec; ++t) {
-        z[t] = shifted(gv[t], __bfloat162float(c[t]), eps);
-        zmax = fmaxf(zmax, z[t]);
-      }
-      float part = 0.0f;
-#pragma unroll
-      for (int t = 0; t < kVec; ++t) {
-        part = __fadd_rn(part, exp_below(z[t], zmax));
-      }
-      combine(mx, s, zmax, part);
-    }
-  } else {
-    for (int col = lane; col < m; col += 32) {
-      combine(mx, s, shifted(g[col], __bfloat162float(p[col]), eps), 1.0f);
+  for (int t = 0; t < kVec; ++t) {
+    const int col = j * kVec + t;
+    if (col < m) {
+      w[t >> 1] |= static_cast<uint32_t>(__ldg(h + col)) << (16 * (t & 1));
     }
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
+// Folds chunk j of a row into the lane's row partial (mx, s): the max of
+// its z, their rescaled sum, then one combine. Columns past m (ragged C)
+// take z = -inf; a chunk holds at least one column below m.
+template <bool kAligned>
+__device__ __forceinline__ void row_chunk(float& mx, float& s, const uint4& q,
+                                          const float (&gv)[kVec], int j,
+                                          int m, float inv_eps) {
+  float z[kVec];
+  float zmax = -INFINITY;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int t = 0; t < kVec; ++t) {
+    z[t] = shifted(gv[t], elem(q, t), inv_eps);
+    if (!kAligned && j * kVec + t >= m) z[t] = -INFINITY;
+    zmax = fmaxf(zmax, z[t]);
+  }
+  float part = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kVec; ++t) {
+    part = __fadd_rn(part, expf(__fsub_rn(z[t], zmax)));
+  }
+  combine(mx, s, zmax, zmax == -INFINITY ? 0.0f : part);
+}
+
+// The row partials of a group's `lanes` lanes combined in a fixed
+// xor-shuffle order; every lane of the group ends with the same bits
+// (combine is commutative).
+__device__ __forceinline__ void group_combine(float& mx, float& s, int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1) {
     const float m2 = __shfl_xor_sync(0xffffffffu, mx, off);
     const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
     combine(mx, s, m2, s2);
   }
-  if (lane == 0) {
-    m_out[row] = mx;
-    s_out[row] = s;
+}
+
+// What a launch needs. A slab is `per` chunks of a row (slab k: chunks
+// k * per ...); `lanes` lanes (4, 8, 16 or 32) own a row and each loads up
+// to kSlots chunks of it, lanes * kSlots >= per.
+struct LseArgs {
+  const __nv_bfloat16* C;
+  const float* g;      // row side: the column shifts
+  const float* f;      // column-only: the row shifts
+  const float* log_a;  // fused: log of the row masses
+  float* f_out;        // fused: f
+  float* m_row;        // row-only: (mx, s) per row
+  float* s_row;
+  float* m_part;       // column kernels: block partials, f32[blocks, m]
+  float* s_part;
+  int n, m;
+  int per;             // chunks per slab
+  int slabs;
+  int lanes;
+  int rows_per_block;  // a multiple of kWarps * 8
+  float eps, inv_eps;
+};
+
+// cp.async (global -> shared, bypassing registers) and its groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The rows a warp walks: block b covers rows_per_block rows, warp w of it
+// the contiguous run [w0, w1) of rows_per_block / kWarps; iteration i of a
+// group takes row w0 + i * groups + grp.
+struct WarpRows {
+  int w0, w1, iters;
+};
+
+__device__ __forceinline__ WarpRows warp_rows(const LseArgs& a, int block,
+                                              int warp, int groups) {
+  const int per_warp = a.rows_per_block / kWarps;
+  WarpRows r;
+  r.w0 = block * a.rows_per_block + warp * per_warp;
+  r.w1 = min(a.n, r.w0 + per_warp);
+  r.iters = r.w1 > r.w0 ? (r.w1 - r.w0 + groups - 1) / groups : 0;
+  return r;
+}
+
+// Kernel 4: row partials. Each group of `lanes` lanes takes one row at a
+// time and walks its slabs; per slab each lane issues its kSlots (2-4)
+// 16-byte loads before any arithmetic. Blocks hold kRowBlockRows rows
+// (the row partials need no block combine, so blocks can be small and
+// many: 192 at the wide path's 12288 rows). g comes through the
+// read-only cache. (A register double buffer of the next slab's loads
+// measured no faster on the H100 and took 72 registers against 50.)
+template <int kSlots, bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+dense_row_kernel(const LseArgs a) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lanes = a.lanes;
+  const int groups = 32 / lanes;
+  const int grp = lane / lanes;
+  const int li = lane & (lanes - 1);
+  const int chunks = (a.m + kVec - 1) / kVec;
+  const WarpRows wr = warp_rows(a, blockIdx.x, warp, groups);
+
+  for (int i = 0; i < wr.iters; ++i) {
+    const int row = wr.w0 + i * groups + grp;
+    const bool live = row < wr.w1;
+    const __nv_bfloat16* p = a.C + static_cast<size_t>(live ? row : 0) * a.m;
+    float mx = -INFINITY;
+    float s = 0.0f;
+    for (int sl = 0; sl < a.slabs; ++sl) {
+      uint4 q[kSlots];
+      int js[kSlots];  // the lane's chunks of the slab, -1 where none
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int jl = li + lanes * k;
+        js[k] = (live && jl < a.per && sl * a.per + jl < chunks)
+                    ? sl * a.per + jl
+                    : -1;
+        q[k] = js[k] >= 0 ? load_chunk<kAligned>(p, js[k], a.m)
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const int j = js[k];
+        if (j < 0) continue;
+        float gv[kVec];
+        if (kAligned) {
+          const float4* g4 = reinterpret_cast<const float4*>(a.g);
+          const float4 ga = __ldg(g4 + 2 * j);
+          const float4 gb = __ldg(g4 + 2 * j + 1);
+          gv[0] = ga.x; gv[1] = ga.y; gv[2] = ga.z; gv[3] = ga.w;
+          gv[4] = gb.x; gv[5] = gb.y; gv[6] = gb.z; gv[7] = gb.w;
+        } else {
+#pragma unroll
+          for (int t = 0; t < kVec; ++t) {
+            const int col = j * kVec + t;
+            gv[t] = col < a.m ? __ldg(a.g + col) : 0.0f;
+          }
+        }
+        row_chunk<kAligned>(mx, s, q[k], gv, j, a.m, a.inv_eps);
+      }
+    }
+    group_combine(mx, s, lanes);
+    if (live && li == 0) {
+      a.m_row[row] = mx;
+      a.s_row[row] = s;
+    }
   }
 }
 
-// Column reduction, pass 1: block (x, y) covers 2 * kThreads columns and the
-// rows of chunk y; each thread walks two adjacent columns down the chunk
-// (one bf16x2 load per row when rows are 4-byte aligned) and writes one
-// partial per column.
-__global__ void __launch_bounds__(kThreads)
-col_partial_kernel(const __nv_bfloat16* __restrict__ C,
-                   const float* __restrict__ f, float* __restrict__ m_part,
-                   float* __restrict__ s_part, int n, int m,
-                   int rows_per_chunk, float eps, int pair_ok) {
-  __shared__ float s_f[kColTile];
-  const int c0 = 2 * (blockIdx.x * kThreads + threadIdx.x);
-  const bool has0 = c0 < m;
-  const bool has1 = c0 + 1 < m;
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int r1 = min(n, r0 + rows_per_chunk);
-  float m0 = -INFINITY, s0 = 0.0f, m1 = -INFINITY, s1 = 0.0f;
-  for (int t0 = r0; t0 < r1; t0 += kColTile) {
-    const int rows = min(kColTile, r1 - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows; i += kThreads) s_f[i] = f[t0 + i];
-    __syncthreads();
-    if (!has0) continue;
-    const __nv_bfloat16* p = C + static_cast<size_t>(t0) * m + c0;
-#pragma unroll 4
-    for (int i = 0; i < rows; ++i, p += m) {
-      float ca, cb = 0.0f;
-      if (pair_ok) {
-        const __nv_bfloat162 v =
-            __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
-        ca = __low2float(v);
-        cb = __high2float(v);
-      } else {
-        ca = __bfloat162float(p[0]);
-        if (has1) cb = __bfloat162float(p[1]);
-      }
-      const float fr = s_f[i];
-      combine(m0, s0, shifted(fr, ca, eps), 1.0f);
-      if (has1) combine(m1, s1, shifted(fr, cb, eps), 1.0f);
+// Kernel 5 (kFused = false) and one Sinkhorn iteration's kernels 4 + 5
+// (kFused = true): column partials of slab blockIdx.x over the rows of
+// block blockIdx.y, rows walked as in dense_row_kernel. Per row the column
+// shift is f[row] (column-only) or, fused, f[row] = eps * (log_a[row] -
+// LSE_row) from the row side just run on the same registers.
+//
+// Loads. The column partials take most of a lane's registers, so rows are
+// staged in shared memory, not in a second register buffer: each lane
+// copies its own chunks of row iteration i + kRing - 1 with cp.async into
+// its slots of a kRing-deep ring while it works on iteration i, so 2 x
+// kSlots 16-byte loads per lane are in flight during the arithmetic. Only
+// the lane that copied a chunk reads it, so its own cp.async.wait_group
+// orders them. Ragged or unaligned C, which 16-byte copies cannot take,
+// loads each row into registers as it comes.
+//
+// Dynamic shared memory: (fused) g as f32[per * 8]; then the ring,
+// uint4[kRing][kSlots][kThreads], which after the row walk holds every
+// lane's column partials, m then s, f32[kWarps][32 / lanes][lanes * kSlots
+// * 8] each.
+template <bool kFused, int kSlots, bool kAligned>
+__global__ void __launch_bounds__(kThreads, 2)
+dense_col_kernel(const LseArgs a) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lanes = a.lanes;
+  const int groups = 32 / lanes;
+  const int grp = lane / lanes;
+  const int li = lane & (lanes - 1);
+  const int chunks = (a.m + kVec - 1) / kVec;
+  const WarpRows wr = warp_rows(a, blockIdx.y, warp, groups);
+  const int j0 = blockIdx.x * a.per;  // the slab's first chunk
+  const int cap = lanes * kSlots * kVec;  // columns a group covers
+  float* s_g = reinterpret_cast<float*>(smem4);
+  float* s_work = s_g + (kFused ? a.per * kVec : 0);
+  uint4* ring = reinterpret_cast<uint4*>(s_work);
+  float* s_m = s_work;
+  float* s_s = s_m + kWarps * groups * cap;
+
+  int js[kSlots];  // the lane's chunks of the slab, -1 where none
+  float cm[kSlots][kVec], cs[kSlots][kVec];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int jl = li + lanes * k;
+    js[k] = (jl < a.per && j0 + jl < chunks) ? j0 + jl : -1;
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) {
+      cm[k][t] = -INFINITY;
+      cs[k][t] = 0.0f;
     }
   }
-  const size_t base = static_cast<size_t>(blockIdx.y) * m + c0;
-  if (has0) {
-    m_part[base] = m0;
-    s_part[base] = s0;
+
+  auto ring_at = [&](int i, int k) -> uint4* {
+    return ring + ((i % kRing) * kSlots + k) * kThreads + threadIdx.x;
+  };
+  auto prefetch = [&](int i) {  // one commit group per iteration
+    const int row = wr.w0 + i * groups + grp;
+    if (i < wr.iters && row < wr.w1) {
+      const __nv_bfloat16* p = a.C + static_cast<size_t>(row) * a.m;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (js[k] >= 0) cp_async16(ring_at(i, k), p + js[k] * kVec);
+      }
+    }
+    cp_async_commit();
+  };
+  if (kAligned) {
+#pragma unroll
+    for (int i = 0; i < kRing - 1; ++i) prefetch(i);
   }
-  if (has1) {
-    m_part[base + 1] = m1;
-    s_part[base + 1] = s1;
+
+  if (kFused) {  // one slab: the whole row
+    for (int i = threadIdx.x; i < a.per * kVec; i += kThreads) {
+      s_g[i] = i < a.m ? __ldg(a.g + i) : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  for (int i = 0; i < wr.iters; ++i) {
+    const int row = wr.w0 + i * groups + grp;
+    const bool live = row < wr.w1;
+    uint4 q[kSlots];
+    if (kAligned) {
+      prefetch(i + kRing - 1);
+      cp_async_wait<kRing - 1>();
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        q[k] = (live && js[k] >= 0) ? *ring_at(i, k)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      const __nv_bfloat16* p =
+          a.C + static_cast<size_t>(live ? row : 0) * a.m;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        q[k] = (live && js[k] >= 0) ? load_chunk<false>(p, js[k], a.m)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    float fr;
+    if (kFused) {
+      float mx = -INFINITY;
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (!live || js[k] < 0) continue;
+        const float4* g4 = reinterpret_cast<const float4*>(s_g) + 2 * js[k];
+        const float4 ga = g4[0];
+        const float4 gb = g4[1];
+        const float gv[kVec] = {ga.x, ga.y, ga.z, ga.w,
+                                gb.x, gb.y, gb.z, gb.w};
+        row_chunk<kAligned>(mx, s, q[k], gv, js[k], a.m, a.inv_eps);
+      }
+      group_combine(mx, s, lanes);
+      const float la = live ? __ldg(a.log_a + row) : 0.0f;
+      const float lse = __fadd_rn(logf(fmaxf(s, kTiny)), mx);
+      fr = __fmul_rn(a.eps, __fsub_rn(la, lse));
+      if (live && li == 0) a.f_out[row] = fr;
+    } else {
+      fr = live ? __ldg(a.f + row) : 0.0f;
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      if (js[k] < 0) continue;
+#pragma unroll
+      for (int t = 0; t < kVec; ++t) {
+        if (!kAligned && js[k] * kVec + t >= a.m) continue;
+        fold(cm[k][t], cs[k][t], shifted(fr, elem(q[k], t), a.inv_eps));
+      }
+    }
+  }
+
+  // Every lane's partials to shared memory (over the ring, once every warp
+  // is done with it), then the block's threads combine them per column in
+  // (warp, group) order: one partial row.
+  cp_async_wait<0>();
+  __syncthreads();
+  const int slot = warp * groups + grp;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int col = (li + lanes * k) * kVec;
+    float4* pm = reinterpret_cast<float4*>(s_m + slot * cap + col);
+    float4* ps = reinterpret_cast<float4*>(s_s + slot * cap + col);
+    pm[0] = make_float4(cm[k][0], cm[k][1], cm[k][2], cm[k][3]);
+    pm[1] = make_float4(cm[k][4], cm[k][5], cm[k][6], cm[k][7]);
+    ps[0] = make_float4(cs[k][0], cs[k][1], cs[k][2], cs[k][3]);
+    ps[1] = make_float4(cs[k][4], cs[k][5], cs[k][6], cs[k][7]);
+  }
+  __syncthreads();
+  const int c0 = j0 * kVec;
+  const int width = min(a.per * kVec, a.m - c0);
+  const size_t out = static_cast<size_t>(blockIdx.y) * a.m + c0;
+  for (int c = threadIdx.x; c < width; c += kThreads) {
+    // Slab column c is at offset c of every group's area (its chunk c / 8
+    // is slot k of lane li with li + lanes * k = c / 8).
+    float mx = s_m[c];
+    float s = s_s[c];
+    for (int w = 1; w < kWarps * groups; ++w) {
+      combine(mx, s, s_m[w * cap + c], s_s[w * cap + c]);
+    }
+    a.m_part[out + c] = mx;
+    a.s_part[out + c] = s;
   }
 }
 
@@ -215,48 +508,176 @@ col_combine_kernel(const float* __restrict__ m_part,
   s_out[col] = s;
 }
 
+// Lanes per row and loads per lane for a slab of `per` chunks: the
+// smallest cover, so at least 3/4 of the lanes hold data at every padded
+// width of the dense tier (64, 96, 128, 192, 256, 384, 512, 768, 1024).
+void pick_layout(int per, int& lanes, int& slots) {
+  static const int kLayouts[][2] = {{4, 2},  {4, 3},  {8, 2}, {16, 2},
+                                    {32, 2}, {32, 3}, {32, 4}};
+  for (const auto& l : kLayouts) {
+    if (l[0] * l[1] >= per) {
+      lanes = l[0];
+      slots = l[1];
+      return;
+    }
+  }
+  lanes = 32;
+  slots = kMaxSlots;
+}
+
+// Splits a row of m columns into equal slabs of at most kSlabChunks chunks
+// and picks their layout; ragged or unaligned C takes 32 lanes x 4 loads.
+void plan(LseArgs& a, bool aligned, int& slots) {
+  const int chunks = (a.m + kVec - 1) / kVec;
+  a.slabs = chunks > 0 ? (chunks + kSlabChunks - 1) / kSlabChunks : 1;
+  a.per = chunks > 0 ? (chunks + a.slabs - 1) / a.slabs : 1;
+  if (aligned) {
+    pick_layout(a.per, a.lanes, slots);
+  } else {
+    a.lanes = 32;
+    slots = kMaxSlots;
+  }
+}
+
+bool rows_ok(int rows_per_block) {
+  return rows_per_block > 0 && rows_per_block % (kWarps * 8) == 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int kSlots, bool kAligned>
+int launch_row(const LseArgs& a, cudaStream_t st) {
+  const int blocks = (a.n + a.rows_per_block - 1) / a.rows_per_block;
+  dense_row_kernel<kSlots, kAligned><<<blocks, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kFused, int kSlots, bool kAligned>
+int launch_col(const LseArgs& a, cudaStream_t st) {
+  // Shared memory at the widest layout of kSlots loads (32 lanes a row).
+  constexpr int kMaxBytes = 2 * kWarps * 32 * kSlots * kVec * 4 +
+                            (kFused ? kSlabChunks * kVec * 4 : 0);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dense_col_kernel<kFused, kSlots, kAligned>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int groups = 32 / a.lanes;
+  const int smem = 4 * (2 * kWarps * groups * a.lanes * kSlots * kVec +
+                        (kFused ? a.per * kVec : 0));
+  const dim3 grid(a.slabs, (a.n + a.rows_per_block - 1) / a.rows_per_block);
+  dense_col_kernel<kFused, kSlots, kAligned><<<grid, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The column kernel of `slots` loads per lane, then the combine of its
+// block partials.
+template <bool kFused>
+int run_col(const LseArgs& a, int slots, bool aligned, float* m_out,
+            float* s_out, cudaStream_t st) {
+  int err;
+  if (!aligned) {
+    err = launch_col<kFused, kMaxSlots, false>(a, st);
+  } else if (slots == 2) {
+    err = launch_col<kFused, 2, true>(a, st);
+  } else if (slots == 3) {
+    err = launch_col<kFused, 3, true>(a, st);
+  } else {
+    err = launch_col<kFused, 4, true>(a, st);
+  }
+  if (err != 0) return err;
+  const int blocks = (a.n + a.rows_per_block - 1) / a.rows_per_block;
+  col_combine_kernel<<<(a.m + kCombineCols - 1) / kCombineCols,
+                       dim3(kCombineCols, kCombineLanes), 0, st>>>(
+      a.m_part, a.s_part, m_out, s_out, blocks, a.m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. C is bf16[n, m] row-major; the
-// wrapper checks shapes, dtypes and contiguity, and allocates the outputs
-// and the column scratch (m_part, s_part: f32[ceil(n / rows_per_chunk), m]).
+// wrapper checks shapes, dtypes and contiguity, allocates the outputs and
+// the column scratch (m_part, s_part: f32[ceil(n / rows_per_block), m];
+// rows_per_block a multiple of 64), and passes inv_eps = 1 / eps as f32.
 // Each returns the cudaGetLastError() code after its launches (0 =
-// launched).
+// launched), or cudaErrorInvalidValue for operands the kernels do not take.
 extern "C" {
 
 int mm_row_lse_partial(const void* C, const void* g, void* m_out, void* s_out,
-                       int n, int m, float eps, void* stream) {
-  const int vec_ok = (m % 8 == 0) &&
-                     (reinterpret_cast<uintptr_t>(C) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(g) % 16 == 0);
-  const int blocks = static_cast<int>(
-      (static_cast<long long>(n) * 32 + kThreads - 1) / kThreads);
-  row_lse_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(C), static_cast<const float*>(g),
-      static_cast<float*>(m_out), static_cast<float*>(s_out), n, m, eps,
-      vec_ok);
-  return static_cast<int>(cudaGetLastError());
+                       int n, int m, float inv_eps, void* stream) {
+  if (n <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  LseArgs a{};
+  a.C = static_cast<const __nv_bfloat16*>(C);
+  a.g = static_cast<const float*>(g);
+  a.m_row = static_cast<float*>(m_out);
+  a.s_row = static_cast<float*>(s_out);
+  a.n = n;
+  a.m = m;
+  a.rows_per_block = kRowBlockRows;
+  a.inv_eps = inv_eps;
+  const bool aligned = m % kVec == 0 && aligned16(C) && aligned16(g);
+  int slots;
+  plan(a, aligned, slots);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!aligned) return launch_row<kMaxSlots, false>(a, st);
+  if (slots == 2) return launch_row<2, true>(a, st);
+  if (slots == 3) return launch_row<3, true>(a, st);
+  return launch_row<4, true>(a, st);
 }
 
 int mm_col_lse_partial(const void* C, const void* f, void* m_part,
                        void* s_part, void* m_out, void* s_out, int n, int m,
-                       int rows_per_chunk, float eps, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int pair_ok =
-      (m % 2 == 0) && (reinterpret_cast<uintptr_t>(C) % 4 == 0);
-  const int chunks = (n + rows_per_chunk - 1) / rows_per_chunk;
-  const dim3 grid((m + 2 * kThreads - 1) / (2 * kThreads), chunks);
-  col_partial_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(C), static_cast<const float*>(f),
-      static_cast<float*>(m_part), static_cast<float*>(s_part), n, m,
-      rows_per_chunk, eps, pair_ok);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  col_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
-                       dim3(kCombineCols, kCombineLanes), 0, st>>>(
-      static_cast<const float*>(m_part), static_cast<const float*>(s_part),
-      static_cast<float*>(m_out), static_cast<float*>(s_out), chunks, m);
-  return static_cast<int>(cudaGetLastError());
+                       int rows_per_block, float inv_eps, void* stream) {
+  if (n <= 0 || m <= 0 || !rows_ok(rows_per_block)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LseArgs a{};
+  a.C = static_cast<const __nv_bfloat16*>(C);
+  a.f = static_cast<const float*>(f);
+  a.m_part = static_cast<float*>(m_part);
+  a.s_part = static_cast<float*>(s_part);
+  a.n = n;
+  a.m = m;
+  a.rows_per_block = rows_per_block;
+  a.inv_eps = inv_eps;
+  const bool aligned = m % kVec == 0 && aligned16(C);
+  int slots;
+  plan(a, aligned, slots);
+  return run_col<false>(a, slots, aligned, static_cast<float*>(m_out),
+                        static_cast<float*>(s_out),
+                        static_cast<cudaStream_t>(stream));
+}
+
+// One Sinkhorn iteration's LSE passes: f = eps * (log_a - row LSE of g)
+// into f_out (f32[n]), and the column (m, s) of that f into m_out/s_out
+// (f32[m]), through the block partials. At most 1024 columns.
+int mm_lse_sinkhorn_step(const void* C, const void* g, const void* log_a,
+                         void* f_out, void* m_part, void* s_part, void* m_out,
+                         void* s_out, int n, int m, int rows_per_block,
+                         float eps, float inv_eps, void* stream) {
+  if (n <= 0 || m <= 0 || m > kSlabChunks * kVec ||
+      !rows_ok(rows_per_block)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LseArgs a{};
+  a.C = static_cast<const __nv_bfloat16*>(C);
+  a.g = static_cast<const float*>(g);
+  a.log_a = static_cast<const float*>(log_a);
+  a.f_out = static_cast<float*>(f_out);
+  a.m_part = static_cast<float*>(m_part);
+  a.s_part = static_cast<float*>(s_part);
+  a.n = n;
+  a.m = m;
+  a.rows_per_block = rows_per_block;
+  a.eps = eps;
+  a.inv_eps = inv_eps;
+  const bool aligned = m % kVec == 0 && aligned16(C);
+  int slots;
+  plan(a, aligned, slots);
+  return run_col<true>(a, slots, aligned, static_cast<float*>(m_out),
+                       static_cast<float*>(s_out),
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

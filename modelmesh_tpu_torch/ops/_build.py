@@ -56,6 +56,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "lse": {
         "mm_row_lse_partial": [_P, _P, _P, _P, _I, _I, _F, _P],
         "mm_col_lse_partial": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "mm_lse_sinkhorn_step": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
+        ],
     },
 }
 
@@ -156,15 +159,12 @@ def check_cpu(*tensors) -> None:
             raise ValueError(f"C is on the CPU but an operand is on {t.device}")
 
 
-def check_operands(C, rows=(), cols=()) -> tuple[int, int]:
-    """What a kernel takes: C a contiguous 2-D bf16 tensor, and each
-    ``(name, tensor, dtype)`` of ``rows`` (``cols``) a contiguous vector of
-    that dtype and C's row (column) count, all on C's device. Returns
+def check_vectors(C, rows=(), cols=()) -> tuple[int, int]:
+    """Each ``(name, tensor, dtype)`` of ``rows`` (``cols``) a vector of
+    that dtype and 2-D C's row (column) count, on C's device. Returns
     (n, m)."""
-    if C.dim() != 2 or C.dtype != torch.bfloat16:
-        raise TypeError(
-            f"C must be a 2-D bf16 tensor (got {C.dtype}, {C.dim()}-D)"
-        )
+    if C.dim() != 2:
+        raise TypeError(f"C must be 2-D (got {C.dim()}-D)")
     n, m = C.shape
     want = [(name, t, dtype, n) for name, t, dtype in rows]
     want += [(name, t, dtype, m) for name, t, dtype in cols]
@@ -174,9 +174,22 @@ def check_operands(C, rows=(), cols=()) -> tuple[int, int]:
                 f"{name} must be {dtype}[{size}] (got {t.dtype}"
                 f"{list(t.shape)})"
             )
-    for name, t in [("C", C)] + [(w[0], w[1]) for w in want]:
         if t.device != C.device:
             raise ValueError(f"{name} is on {t.device}, C on {C.device}")
+    return n, m
+
+
+def check_operands(C, rows=(), cols=()) -> tuple[int, int]:
+    """What a kernel takes: C a contiguous 2-D bf16 tensor, and each
+    ``(name, tensor, dtype)`` of ``rows`` (``cols``) a contiguous vector of
+    that dtype and C's row (column) count, all on C's device. Returns
+    (n, m)."""
+    if C.dim() != 2 or C.dtype != torch.bfloat16:
+        raise TypeError(
+            f"C must be a 2-D bf16 tensor (got {C.dtype}, {C.dim()}-D)"
+        )
+    n, m = check_vectors(C, rows, cols)
+    for name, t in [("C", C)] + [(r[0], r[1]) for r in (*rows, *cols)]:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return n, m

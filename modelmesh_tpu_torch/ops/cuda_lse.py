@@ -1,4 +1,4 @@
-"""The dense Sinkhorn's two fused LSE kernels: wrappers and plain versions.
+"""The dense Sinkhorn's fused LSE kernels: wrappers and plain versions.
 
 Port of ``modelmesh_tpu/ops/pallas_lse.py``. Each partial streams the
 cost matrix C once and returns the online-LSE pair (running max ``m``,
@@ -13,6 +13,15 @@ exp(m1 - M) + s2 * exp(m2 - M)`` (how a sharded solver will combine
 ranks). The reference pads C to its tile grid (``pad_cost``); the kernels
 bounds-check the ragged edge instead, so nothing is padded here.
 
+``lse_sinkhorn_step`` is one dense Sinkhorn iteration's pair in one pass
+over C (at most ``FUSED_MAX_COLS`` columns): ``f = eps * (log_a -
+row_lse(C, g))`` and the column pair of that f.
+
+The plain versions divide by eps, as the XLA reference spells it. The
+kernels multiply by ``inv_eps``, the f32 reciprocal that PyTorch's own
+CUDA division by a scalar multiplies by, so on the card a kernel's z is
+bit for bit the plain version's.
+
 Each wrapper takes its kernel's plain PyTorch version only for tensors on
 the CPU; for CUDA tensors it launches the kernel in ``csrc/lse.cu`` (built
 at first use by ``_build``) or raises. There is no fallback from one to
@@ -21,13 +30,19 @@ the other. ``launches`` counts kernel launches per wrapper.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from modelmesh_tpu_torch.ops import _build
 
 LIB = "lse"
-# Rows per partial of the two-pass column reduction (one scratch row each).
-ROWS_PER_CHUNK = 256
+# Rows per block of the column kernels, and so per partial of their
+# reductions (one scratch row each; a multiple of 64). Fixed, so the
+# combine order follows from N alone and does not depend on the card.
+ROWS_PER_BLOCK = 256
+# Widest C the fused step takes: a row group holds a whole row (32 lanes x
+# 4 16-byte loads). Wider, the row and column passes run back to back.
+FUSED_MAX_COLS = 1024
 # Floor on the rescaled sum before the log (the reference's 1e-30).
 _TINY = 1e-30
 
@@ -36,12 +51,19 @@ _TINY = 1e-30
 launches = {
     "row_lse_partial": 0,
     "col_lse_partial": 0,
+    "lse_sinkhorn_step": 0,
 }
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def inv_eps_of(eps: float) -> float:
+    """The f32 reciprocal of eps that the kernels multiply by: what
+    PyTorch's CUDA ``x / eps`` multiplies by."""
+    return float(np.float32(1) / np.float32(eps))
 
 
 def row_lse_partial_ref(C, g, eps: float):
@@ -58,44 +80,101 @@ def col_lse_partial_ref(C, f, eps: float):
     return m, torch.exp(z - m[None, :]).sum(dim=0)
 
 
+def lse_sinkhorn_step_ref(C, g, log_a, eps: float):
+    """Plain version of ``lse_sinkhorn_step``: the two plain partials
+    composed, op for op what the unfused iteration computes."""
+    f = eps * (log_a - lse_of(*row_lse_partial_ref(C, g, eps)))
+    return (f, *col_lse_partial_ref(C, f, eps))
+
+
+def _empty_pair(size: int, device):
+    """The (m, s) of a reduction over nothing: (-inf, 0) each."""
+    return (torch.full((size,), -torch.inf, dtype=torch.float32,
+                       device=device),
+            torch.zeros(size, dtype=torch.float32, device=device))
+
+
+def _partials(n: int, m: int, device):
+    """Scratch of the column reductions' block partials (m, s):
+    f32[ceil(n / ROWS_PER_BLOCK), m] each."""
+    m_part = torch.empty((-(-n // ROWS_PER_BLOCK), m), dtype=torch.float32,
+                         device=device)
+    return m_part, torch.empty_like(m_part)
+
+
+def _launch(name: str, fn_name: str, device, *args) -> None:
+    _build.launch(LIB, fn_name, device, *args)
+    launches[name] += 1
+
+
 def row_lse_partial(C, g, eps: float):
     """(m, s) of logsumexp_m (g[m] - C[n, m]) / eps -> two f32[N]."""
     if C.device.type == "cpu":
         _build.check_cpu(g)
         return row_lse_partial_ref(C, g, eps)
     n, m = _build.check_cuda(C, cols=[("g", g, torch.float32)])
+    if n == 0 or m == 0:
+        return _empty_pair(n, C.device)
     m_out = torch.empty(n, dtype=torch.float32, device=C.device)
     s_out = torch.empty(n, dtype=torch.float32, device=C.device)
-    if n:
-        _build.launch(
-            LIB, "mm_row_lse_partial", C.device, C.data_ptr(), g.data_ptr(),
-            m_out.data_ptr(), s_out.data_ptr(), n, m, eps,
-        )
-        launches["row_lse_partial"] += 1
+    _launch(
+        "row_lse_partial", "mm_row_lse_partial", C.device, C.data_ptr(),
+        g.data_ptr(), m_out.data_ptr(), s_out.data_ptr(), n, m,
+        inv_eps_of(eps),
+    )
     return m_out, s_out
 
 
 def col_lse_partial(C, f, eps: float):
-    """(m, s) of logsumexp_n (f[n] - C[n, m]) / eps -> two f32[M] (two
-    passes: per-chunk partials, then a fixed-order combine; no float
-    atomics)."""
+    """(m, s) of logsumexp_n (f[n] - C[n, m]) / eps -> two f32[M] (block
+    partials, then a fixed-order combine; no float atomics)."""
     if C.device.type == "cpu":
         _build.check_cpu(f)
         return col_lse_partial_ref(C, f, eps)
     n, m = _build.check_cuda(C, rows=[("f", f, torch.float32)])
-    m_out = torch.full((m,), -torch.inf, dtype=torch.float32, device=C.device)
-    s_out = torch.zeros(m, dtype=torch.float32, device=C.device)
-    if n and m:
-        chunks = -(-n // ROWS_PER_CHUNK)
-        m_part = torch.empty((chunks, m), dtype=torch.float32, device=C.device)
-        s_part = torch.empty_like(m_part)
-        _build.launch(
-            LIB, "mm_col_lse_partial", C.device, C.data_ptr(), f.data_ptr(),
-            m_part.data_ptr(), s_part.data_ptr(), m_out.data_ptr(),
-            s_out.data_ptr(), n, m, ROWS_PER_CHUNK, eps,
-        )
-        launches["col_lse_partial"] += 1
+    if n == 0 or m == 0:
+        return _empty_pair(m, C.device)
+    m_out = torch.empty(m, dtype=torch.float32, device=C.device)
+    s_out = torch.empty(m, dtype=torch.float32, device=C.device)
+    m_part, s_part = _partials(n, m, C.device)
+    _launch(
+        "col_lse_partial", "mm_col_lse_partial", C.device, C.data_ptr(),
+        f.data_ptr(), m_part.data_ptr(), s_part.data_ptr(), m_out.data_ptr(),
+        s_out.data_ptr(), n, m, ROWS_PER_BLOCK, inv_eps_of(eps),
+    )
     return m_out, s_out
+
+
+def lse_sinkhorn_step(C, g, log_a, eps: float):
+    """One dense Sinkhorn iteration's LSE passes in one pass over C (at
+    most FUSED_MAX_COLS columns): f = eps * (log_a - row_lse(C, g))
+    -> f32[N], and the column pair (m, s) of that f -> two f32[M]."""
+    if C.shape[-1] > FUSED_MAX_COLS:
+        raise ValueError(
+            f"lse_sinkhorn_step takes at most {FUSED_MAX_COLS} columns "
+            f"(got {C.shape[-1]}): run row_lse and col_lse"
+        )
+    operands = dict(rows=[("log_a", log_a, torch.float32)],
+                    cols=[("g", g, torch.float32)])
+    if C.device.type == "cpu":
+        _build.check_cpu(g, log_a)
+        _build.check_vectors(C, **operands)
+        return lse_sinkhorn_step_ref(C, g, log_a, eps)
+    n, m = _build.check_cuda(C, **operands)
+    if n == 0 or m == 0:
+        empty_rows = _empty_pair(n, C.device)
+        return (eps * (log_a - lse_of(*empty_rows)), *_empty_pair(m, C.device))
+    f = torch.empty(n, dtype=torch.float32, device=C.device)
+    m_out = torch.empty(m, dtype=torch.float32, device=C.device)
+    s_out = torch.empty(m, dtype=torch.float32, device=C.device)
+    m_part, s_part = _partials(n, m, C.device)
+    _launch(
+        "lse_sinkhorn_step", "mm_lse_sinkhorn_step", C.device, C.data_ptr(),
+        g.data_ptr(), log_a.data_ptr(), f.data_ptr(), m_part.data_ptr(),
+        s_part.data_ptr(), m_out.data_ptr(), s_out.data_ptr(), n, m,
+        ROWS_PER_BLOCK, eps, inv_eps_of(eps),
+    )
+    return f, m_out, s_out
 
 
 def lse_of(m, s):

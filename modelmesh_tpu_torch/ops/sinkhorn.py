@@ -110,21 +110,26 @@ def sinkhorn(
         g = min(0, eps * (log b - col_lse(C, f)))
 
     with both LSE passes in the fused kernels (CUDA tensors) or their
-    plain versions (CPU tensors). ``g0`` warm-starts the column
-    potentials; ``tol`` > 0 enables the convergence gate
-    (``gated_sinkhorn_loop``)."""
+    plain versions (CPU tensors): up to ``FUSED_MAX_COLS`` columns one
+    pass over C per iteration (``lse_sinkhorn_step``), wider the row and
+    column passes back to back. ``g0`` warm-starts the column potentials;
+    ``tol`` > 0 enables the convergence gate (``gated_sinkhorn_loop``)."""
     resolve_lse_impl(lse_impl, C.device)
     row_mass = row_mass.to(torch.float32)
     col_mass = col_mass.to(torch.float32)
     log_a = torch.log(torch.clamp_min(row_mass, _TINY))
     log_b = torch.log(torch.clamp_min(col_mass, _TINY))
+    one_pass = C.shape[1] <= cuda_lse.FUSED_MAX_COLS
 
     def run_iters(f, g, length):
         for _ in range(length):
-            f = eps * (log_a - cuda_lse.row_lse(C, g, eps))
-            g = torch.clamp_max(
-                eps * (log_b - cuda_lse.col_lse(C, f, eps)), 0.0
-            )
+            if one_pass:
+                f, m, s = cuda_lse.lse_sinkhorn_step(C, g, log_a, eps)
+                col = cuda_lse.lse_of(m, s)
+            else:
+                f = eps * (log_a - cuda_lse.row_lse(C, g, eps))
+                col = cuda_lse.col_lse(C, f, eps)
+            g = torch.clamp_max(eps * (log_b - col), 0.0)
         return f, g
 
     def marginal_err(f, g):

@@ -35,6 +35,7 @@ from modelmesh_tpu_torch.ops.auction import (
     price_repair,
     resolve_load_impl,
     select_from_candidates,
+    top_k,
 )
 from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, run_sinkhorn
 
@@ -85,7 +86,10 @@ def topk_candidates(
     salted = 0 if seed is None else (int(seed) ^ _GATHER_SALT) & 0xFFFFFFFF
     x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device)
     key = cuda_sparse.selection_key(C, x_row, tau=GATHER_TAU, noised=noised)
-    neg_vals, idx = torch.topk(-key, k, dim=1)
+    # Ties (equal keys: no noise, or the coarse INFEASIBLE penalty) go to
+    # the lower column, as jax.lax.top_k breaks them.
+    neg_vals, idx = top_k(-key, k)
+    idx = idx.contiguous()  # frees the sorted rows it is a view of
     # K-th selection key via a min over the descending values, as the
     # reference takes it.
     kth = -neg_vals.amin(dim=1)

@@ -599,20 +599,25 @@ def finalize_plan(
 ) -> GlobalPlan:
     """Read the solve back and pack it into a GlobalPlan.
 
-    One batched readback per cycle: one packed int32 tensor (indices +
-    valid counts) and one packed f32 tensor (overflow, row_err and, with
-    ``fetch_carries``, g and prices). The iteration counts are already on
-    the host. ``solve_ms`` runs from the end of the snapshot to the end
-    of the readback."""
+    One readback per cycle, as the reference's one batched ``device_get``:
+    the packed int32 plan (indices + valid counts) followed by the f32
+    values (overflow, row_err and, with ``fetch_carries``, g and prices)
+    carried in the same int32 buffer bit for bit. The iteration counts are
+    already on the host. ``solve_ms`` runs from the end of the snapshot to
+    the end of the readback."""
     cols, sol = pending.cols, pending.sol
     m_pad = sol.load.shape[0]
     floats = [sol.overflow.reshape(1), sol.row_err.reshape(1)]
     if fetch_carries:
         floats += [sol.g, sol.prices]
-    packed = device_mod.readback(_compact_result(sol)).numpy()
-    scalars = device_mod.readback(
-        torch.cat([t.to(torch.float32) for t in floats])
-    ).numpy()
+    plan_dev = _compact_result(sol)
+    rows, width = plan_dev.shape
+    host = device_mod.readback(torch.cat([
+        plan_dev.reshape(-1),
+        torch.cat([t.to(torch.float32) for t in floats]).view(torch.int32),
+    ])).numpy()
+    packed = host[:rows * width].reshape(rows, width)
+    scalars = host[rows * width:].view(np.float32)
     t2 = time.perf_counter()
     n = len(cols.model_ids)
     idxa = packed[:n, :-1]

@@ -121,7 +121,7 @@ def test_dispatch_finalize_matches_reference(snapshots):
     assert agree >= 0.97, agree
     for key in ("sinkhorn_iters_run", "auction_iters_run"):
         assert tplan.stats[key] == jplan.stats[key]
-    assert tplan.stats["host_syncs"] >= 2       # at least the two readbacks
+    assert tplan.stats["host_syncs"] >= 1       # at least the one readback
     assert tplan.warm_g.keys() == jplan.warm_g.keys()
     np.testing.assert_allclose(
         [tplan.warm_g[i] for i in jc.instance_ids],
@@ -200,7 +200,7 @@ def test_dense_routed_fleet_matches_reference(pinned_clock):
     assert _plans_agree(jc, jplan, tplan) >= 0.97
     for key in ("sinkhorn_iters_run", "auction_iters_run"):
         assert tplan.stats[key] == jplan.stats[key]
-    assert tplan.stats["host_syncs"] == 2       # the two readbacks only
+    assert tplan.stats["host_syncs"] == 1       # the one readback only
     np.testing.assert_allclose(
         [tplan.warm_g[i] for i in jc.instance_ids],
         [jplan.warm_g[i] for i in jc.instance_ids], atol=1e-3,

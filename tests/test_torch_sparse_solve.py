@@ -221,3 +221,37 @@ def test_resolve_sparse_impl():
     assert sparse.resolve_sparse_impl("cuda", torch.device("cuda")) == "cuda"
     with pytest.raises(ValueError):
         sparse.resolve_sparse_impl("pallas", torch.device("cuda"))
+
+
+@pytest.mark.parametrize("seed", [None, 7], ids=["exact_ties", "noised"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_topk_candidates_tie_order(seed, dtype):
+    """The top-K gather against the reference's ``jax.lax.top_k`` order:
+    a row with fewer than K feasible columns, rows of feasible costs on a
+    coarse grid (exact ties without noise, near-ties with it). Gathered
+    ids equal on every valid slot; the K-th keys equal, or with noise
+    within the hash-Gumbel draw's pinned atol 2e-4 (XLA-CPU's and
+    torch-CPU's f32 log differ by an ulp on some inputs)."""
+    from modelmesh_tpu.ops import sparse as ref_sparse
+
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(0)
+    n, m = 6, 96
+    cost = np.round(rng.random((n, m)) * 4) / 4
+    feasible = np.ones((n, m), bool)
+    feasible[0, 5:] = False
+    feasible[1, ::3] = False
+    cost = (cost + 1e4 * ~feasible).astype(np.float32)
+    Cj = jnp.asarray(cost).astype(jd)
+    Ct = torch.from_numpy(np.array(Cj.astype(jnp.float32))).to(td)
+    ref = ref_sparse.topk_candidates(
+        Cj, jnp.asarray(feasible), K,
+        seed=None if seed is None else jnp.uint32(seed), return_thresh=True)
+    _, idx_k, feas_k, fused = sparse.topk_candidates(
+        Ct, torch.from_numpy(feasible), K, seed=seed)
+    ref_idx, ref_feas = np.asarray(ref[1]), np.asarray(ref[2])
+    np.testing.assert_array_equal(feas_k.numpy(), ref_feas)
+    np.testing.assert_array_equal(idx_k.numpy()[ref_feas], ref_idx[ref_feas])
+    assert int(ref_feas[0].sum()) == 5          # the short row
+    np.testing.assert_allclose(fused.thresh.numpy(), np.asarray(ref[4]),
+                               rtol=0, atol=0 if seed is None else 2e-4)
