@@ -10,19 +10,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the card's name and power limit.
 2. kernels — each sparse kernel against its plain PyTorch version on the
              card at the 100k x 1k tier's padded shape (C bf16[131072, 1024]
-             from a seed, thresholds from the port's top-K gather), at the
+             from a seed; the top-K selection with K = 24, and the
+             mask-only mode on its thresholds), at the
              wide path's [12288, 1536] (two column slabs, the cp.async ring),
              at a ragged [1000, 1001] and an odd [1000, 1537] (scalar loads,
              the register stage), and on 4096 rows of tied costs (hundreds
-             of candidates a row) 1024 and 1536 wide: rowmin and the packed
-             mask bits bitwise, the flat-integrand candidate counts of the
+             of candidates a row) 1024 and 1536 wide: the selection's ids,
+             thresholds, rowmin and packed mask bits bitwise (and the share
+             of entries whose exact key it computed), the mask-only mode's
+             rowmin and bits bitwise, the flat-integrand candidate counts of the
              row, column and fused products exact, the products at rtol 1e-5
              / atol 1e-6; time per launch over a run of 20 at the shape each
              kernel's path gives it (the column-only pass: the wide path's;
              it and the row-only pass also at the other shape), the fused
              step beside the row and column products back to back, and the
              column passes' device time split between the pass and the
-             combine of its block partials (profiler).
+             combine of its block partials (profiler); the selection beside
+             the unfused route it replaces (PyTorch-op key, stable top-K,
+             K-th key, the mask-only kernel). The guard band's draw bound,
+             checked over all 2^24 uniforms. The implied-load kernel at the
+             auctions' shape (int64[131072, 8] -> 1024, the sparse
+             auction's 5-slot view, 1536 instances): bitwise at integer
+             sizes, rtol 1e-6 at f32 sizes, two launches bitwise, timed
+             beside index_add_.
    lse_kernels — the row-only, column-only and fused LSE kernels against
              their plain versions at the tier, at the dense tier's real
              widths ([131072, 128], [1000, 96], [1000, 64]), at a ragged
@@ -39,7 +49,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (synthetic fleet at 85% utilization): snapshot_columns ->
              dispatch_solve -> finalize_plan on the sparse path, one warm-up
              then 5 solves with varied seeds, kernel launch counters zeroed
-             just before.
+             just before (per solve one selection, no mask-only pass, one
+             implied load per auction iteration and one more); two solves
+             with one seed byte-identical.
    profile — one more main-path solve under torch.profiler: device time
              by kernel name and the device's idle share of the solve.
 4. parity  — one 20,000 x 256 snapshot solved on the card and on the CPU
@@ -55,7 +67,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              around the phase): one warm-up, 5 solves with the default
              config, LSE launch counters zeroed just before (per solve: one
              fused step per Sinkhorn iteration, one row-only pass, no
-             column-only pass, one host sync); then one solve with the
+             column-only pass, one host sync, one implied load per auction
+             iteration and one more; two same-seed solves byte-identical);
+             then one solve with the
              steady gates, and the tie-stable top-k against torch.sort /
              torch.topk at the auction's shortlist shape.
    dense_profile — one dense solve under torch.profiler.
@@ -113,20 +127,23 @@ MAIN_SOLVES = 5
 PEAK_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 PEAK_F32_OPS_PER_S = 67e12
 # f32/int32 operations by the data sheet's count, per cost-matrix element
-# and per candidate (set mask bit). masked_row_min: the selection key
-# (hash: 10 integer ops; uniform, clamp, two logs, two negations, scale,
-# subtract), the mask test and the min, on every element. The bit-reading
+# and per candidate (set mask bit). select_candidates and masked_row_min:
+# the selection key (hash: 10 integer ops; uniform, clamp, two logs, two
+# negations, scale, subtract), the mask test and the min, on every element.
+# implied_load, per slot: the weight's multiply and the add. The bit-reading
 # kernels: a bit test and a convert per element; per candidate a subtract,
 # a divide, an exp and a multiply-add (the fused step one more
 # multiply-add, for the column). The LSE kernels: subtract, scale, max,
 # subtract, exp, add; the fused LSE step both reductions.
-OPS_PER_ELEMENT = {"masked_row_min": 20, "masked_row_matvec": 2,
+OPS_PER_ELEMENT = {"select_candidates": 20, "masked_row_min": 20,
+                   "masked_row_matvec": 2,
                    "masked_col_matvec": 2, "masked_sinkhorn_step": 2,
                    "row_lse_partial": 6, "col_lse_partial": 6,
-                   "lse_sinkhorn_step": 12}
+                   "lse_sinkhorn_step": 12, "implied_load": 2}
 OPS_PER_CANDIDATE = {"masked_row_matvec": 5, "masked_col_matvec": 5,
                      "masked_sinkhorn_step": 7}
 REPLACES = {
+    "select_candidates": "modelmesh_tpu/ops/pallas_sparse.py:196",
     "masked_row_min": "modelmesh_tpu/ops/pallas_sparse.py:196",
     "masked_row_matvec": "modelmesh_tpu/ops/pallas_sparse.py:226",
     "masked_col_matvec": "modelmesh_tpu/ops/pallas_sparse.py:260",
@@ -136,9 +153,12 @@ REPLACES = {
     "col_lse_partial": "modelmesh_tpu/ops/pallas_lse.py:167",
     "lse_sinkhorn_step": ("modelmesh_tpu/ops/pallas_lse.py:130, "
                           "modelmesh_tpu/ops/pallas_lse.py:167"),
+    # A TPU-only path, not a Pallas kernel.
+    "implied_load": "modelmesh_tpu/ops/auction.py:144",
 }
 SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
-           "lse": "modelmesh_tpu_torch/csrc/lse.cu"}
+           "lse": "modelmesh_tpu_torch/csrc/lse.cu",
+           "implied_load": "modelmesh_tpu_torch/csrc/implied_load.cu"}
 LSE_EPS = 0.05
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # Where the LSE kernels are held against their plain versions: the tier,
@@ -152,6 +172,18 @@ LSE_TIMED = ("tier", "narrow", "wide")
 SPARSE_EPS = 0.05
 SPARSE_K = 24
 SPARSE_TOL = dict(rtol=1e-5, atol=1e-6)
+# The auctions' implied load at the main path's shape: N x MAX_COPIES slots
+# onto the tier's instances, sizes as the synthetic fleet's (16-255).
+LOAD_TOL = dict(rtol=1e-6, atol=0.0)
+
+
+def load_ops():
+    """The implied-load wrappers, imported where a phase needs them, so
+    that tools/sparse_kernel_times.py can run this module's helpers on a
+    tree from before them."""
+    from modelmesh_tpu_torch.ops import cuda_load
+
+    return cuda_load
 
 
 def emit(obj) -> None:
@@ -230,20 +262,50 @@ def sparse_operands(C, seed=SEED):
     return (C, fz.thresh, fz.x_row), dict(tau=fz.tau, noised=fz.noised)
 
 
+def selection_operands(C, seed=SEED):
+    """The gather's row hash state of C (selection noise at ``seed``,
+    none when it is None) and the selection's keywords."""
+    noised = seed is not None
+    salted = 0 if seed is None else (seed ^ sparse._GATHER_SALT) & 0xFFFFFFFF
+    x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device)
+    return x_row, dict(tau=sparse.GATHER_TAU, noised=noised)
+
+
+def bitwise_differs(a, b) -> int:
+    """Elements of a and b whose bits differ."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum().item())
+
+
 def check_sparse_kernels(C, tag: str, seed=SEED) -> dict:
-    """Every sparse kernel against its plain version on C: rowmin and the
-    bits bitwise, flat-integrand counts exact, products within SPARSE_TOL.
-    Returns what phase_kernels times: the operands, the bit-reading kernels
-    (name -> (kernel, plain version)), the candidate count and the
-    errors."""
+    """Every sparse kernel against its plain version on C: the selection's
+    ids, thresholds, rowmin and bits bitwise, the mask-only mode's rowmin
+    and bits on the plain thresholds bitwise, flat-integrand counts exact,
+    products within SPARSE_TOL. Returns what phase_kernels times: the
+    operands, the bit-reading kernels (name -> (kernel, plain version)),
+    the candidate count, the errors and the selection's exact-key share."""
     n, m = C.shape
-    args, kw = sparse_operands(C, seed)
+    x_row, kw = selection_operands(C, seed)
+    exact = torch.zeros(n, dtype=torch.int32, device=C.device)
+    sel = cuda_sparse.select_candidates(C, x_row, SPARSE_K,
+                                        exact_counts=exact, **kw)
+    sel_ref = cuda_sparse.select_candidates_ref(C, x_row, min(SPARSE_K, m),
+                                                **kw)
+    differs = {f: bitwise_differs(getattr(sel, f), getattr(sel_ref, f))
+               for f in sel._fields}
+    check(not any(differs.values()),
+          f"{tag}: select_candidates differs bitwise from its plain version "
+          f"({differs})")
+    args = (C, sel_ref.thresh, x_row)
     rowmin, bits = cuda_sparse.masked_row_min(*args, **kw)
     rowmin_ref, bits_ref = cuda_sparse.masked_row_min_ref(*args, **kw)
     check(torch.equal(rowmin.view(torch.int32), rowmin_ref.view(torch.int32)),
           f"{tag}: masked_row_min differs bitwise from its plain version")
     check(torch.equal(bits, bits_ref),
           f"{tag}: masked_row_min's bits differ from the plain packing")
+    check(torch.equal(bits, sel.bits),
+          f"{tag}: the selection's bits differ from masked_row_min's")
     pass_args = (C, bits, rowmin)
     fused = m <= cuda_sparse.FUSED_MAX_COLS
 
@@ -296,16 +358,18 @@ def check_sparse_kernels(C, tag: str, seed=SEED) -> dict:
     def flat(out):  # the fused step's (r, c) as one vector
         return torch.cat(out) if isinstance(out, tuple) else out
 
-    errors = {"masked_row_min": 0.0}
+    errors = {"select_candidates": 0.0, "masked_row_min": 0.0}
     for name, (kernel, plain) in ops.items():
         got, ref = flat(kernel()), flat(plain())
         errors[name] = float((got - ref).abs().max().item())
         check(torch.allclose(got, ref, **SPARSE_TOL),
               f"{tag}: {name} differs from its plain version "
               f"(max abs {errors[name]})")
-    return {"args": args, "kw": kw, "pass_args": pass_args, "v": v,
-            "row_mass": row_mass, "ops": ops,
-            "candidates": int(rc_ref.sum().item()), "errors": errors}
+    return {"args": args, "kw": kw, "x_row": x_row, "pass_args": pass_args,
+            "v": v, "row_mass": row_mass, "ops": ops,
+            "candidates": int(rc_ref.sum().item()), "errors": errors,
+            "exact_share": float(exact.sum().item()) / (n * m),
+            "exact_max_per_row": int(exact.max().item())}
 
 
 def phase_kernels(dev, card: str) -> dict:
@@ -316,24 +380,44 @@ def phase_kernels(dev, card: str) -> dict:
     )
     wide_odd = (torch.randn((WIDE[0], WIDE[1] + 1), generator=gen,
                             device=dev) * 3.0).to(torch.bfloat16)
+    # The guard band's bound on the fast draw, over every uniform.
+    draw_err, draw_bound = cuda_sparse.gumbel_err(dev)
+    check(math.isfinite(draw_err) and draw_err <= draw_bound,
+          f"the fast Gumbel draw is {draw_err} from the exact one, over the "
+          f"band's bound {draw_bound}")
     # The unvectorized paths first: odd widths (no 16-byte loads, no ring
     # stage, a ballot per mask word; one and two column slabs) and ragged
     # last words and blocks.
-    check_sparse_kernels(C[:RAGGED[0], :RAGGED[1]].contiguous(), "ragged")
-    check_sparse_kernels(wide_odd[:RAGGED[0]].contiguous(), "wide_odd")
-    # Rows with more than 32 candidates (the column kernels' later rounds),
-    # in one column slab and in two: costs in {0, 1, 2} and no selection
-    # noise, so the K-th key ties with a third of the row.
+    cases = {
+        "ragged": check_sparse_kernels(
+            C[:RAGGED[0], :RAGGED[1]].contiguous(), "ragged"),
+        "wide_odd": check_sparse_kernels(
+            wide_odd[:RAGGED[0]].contiguous(), "wide_odd"),
+    }
+    # Rows with more than 32 candidates (the column kernels' later rounds,
+    # the selection's hundreds of exact keys), in one column slab and in
+    # two: costs in {0, 1, 2} and no selection noise, so the K-th key ties
+    # with a third of the row.
     ties = torch.randint(0, 3, (TIES_ROWS, WIDE[1]), generator=gen,
                          device=dev).to(torch.bfloat16)
-    check_sparse_kernels(ties[:, :m].contiguous(), "ties", seed=None)
-    check_sparse_kernels(ties, "ties_wide", seed=None)
+    cases["ties"] = check_sparse_kernels(ties[:, :m].contiguous(), "ties",
+                                         seed=None)
+    cases["ties_wide"] = check_sparse_kernels(ties, "ties_wide", seed=None)
     del ties
     # The wide path's shape: the column-only pass's second slab.
-    w = check_sparse_kernels(wide_odd[:, :WIDE[1]].contiguous(), "wide")
+    w = cases["wide"] = check_sparse_kernels(
+        wide_odd[:, :WIDE[1]].contiguous(), "wide")
     del wide_odd
-    t = check_sparse_kernels(C, "tier")
+    t = cases["tier"] = check_sparse_kernels(C, "tier")
     args, kw, pass_args = t["args"], t["kw"], t["pass_args"]
+    x_row = t["x_row"]
+
+    def unfused_route():
+        """What the selection replaces: the PyTorch-op key, the stable
+        top-K, the K-th key, then the mask-only kernel."""
+        key = cuda_sparse.selection_key(C, x_row, **kw)
+        neg_vals, _ = auction.top_k(-key, SPARSE_K)
+        cuda_sparse.masked_row_min(C, -neg_vals.amin(dim=1), x_row, **kw)
 
     def row_then_col():
         """The unfused iteration: row product, clamp, divide, column."""
@@ -349,6 +433,8 @@ def phase_kernels(dev, card: str) -> dict:
         c_bytes = rows * cols * 2
         bits_bytes = rows * cuda_sparse.mask_words(cols) * 4
         return {
+            "select_candidates": c_bytes + 3 * rows * 4 + bits_bytes
+            + rows * SPARSE_K * 8,
             "masked_row_min": c_bytes + 3 * rows * 4 + bits_bytes,
             "masked_row_matvec": c_bytes + bits_bytes + 2 * rows * 4
             + cols * 4,
@@ -358,9 +444,15 @@ def phase_kernels(dev, card: str) -> dict:
             + 2 * cols * 4,
         }[name]
 
-    calls = {"masked_row_min": (
-        lambda: cuda_sparse.masked_row_min(*args, **kw),
-        lambda: cuda_sparse.masked_row_min_ref(*args, **kw))}
+    calls = {
+        "select_candidates": (
+            lambda: cuda_sparse.select_candidates(C, x_row, SPARSE_K, **kw),
+            lambda: cuda_sparse.select_candidates_ref(C, x_row, SPARSE_K,
+                                                      **kw)),
+        "masked_row_min": (
+            lambda: cuda_sparse.masked_row_min(*args, **kw),
+            lambda: cuda_sparse.masked_row_min_ref(*args, **kw)),
+    }
     calls.update(t["ops"])
     # Each kernel at the shape its path gives it: the column-only pass runs
     # on the wide path alone (the tier takes the fused step).
@@ -382,6 +474,12 @@ def phase_kernels(dev, card: str) -> dict:
         calls["masked_col_matvec"][0], KERNEL_REPS)
     results["masked_sinkhorn_step"]["row_then_col_ms"] = time_ms(
         row_then_col, KERNEL_REPS)
+    results["select_candidates"]["unfused_route_ms"] = time_ms(
+        unfused_route, 5)
+    results["select_candidates"]["kernel_split_ms"] = kernel_split_ms(
+        calls["select_candidates"][0], KERNEL_REPS)
+    results["select_candidates"]["unfused_route_split_ms"] = kernel_split_ms(
+        unfused_route, 5)
     # The pass and its combine of block partials, apart, at the tier.
     for name in ("masked_col_matvec", "masked_sinkhorn_step"):
         results[name]["tier_kernel_split_ms"] = kernel_split_ms(
@@ -393,10 +491,91 @@ def phase_kernels(dev, card: str) -> dict:
                              "ties": [TIES_ROWS, m],
                              "ties_wide": [TIES_ROWS, WIDE[1]]},
           "counting_exact": True, "candidates": t["candidates"],
-          "wide_candidates": w["candidates"], **results})
-    del C, t, w, calls, at, pass_args, args
+          "wide_candidates": w["candidates"],
+          "draw_err": draw_err, "draw_bound": draw_bound,
+          "select_exact_share": {tag: c["exact_share"]
+                                 for tag, c in cases.items()},
+          "select_exact_max_per_row": {tag: c["exact_max_per_row"]
+                                       for tag, c in cases.items()},
+          **results})
+    del C, t, w, cases, calls, at, pass_args, args, x_row
     torch.cuda.empty_cache()
     return results
+
+
+def load_operands(gen, n: int, slots: int, m: int, integer: bool = True):
+    """An assignment as the auctions give one: ids in [0, m), 80% of the
+    slots valid, sizes as the synthetic fleet's (integers 16-255) or
+    uniform f32 in [0, 256)."""
+    dev = gen.device
+    idx = torch.randint(0, m, (n, slots), generator=gen, device=dev)
+    valid = torch.rand((n, slots), generator=gen, device=dev) < 0.8
+    if integer:
+        sizes = torch.randint(16, 256, (n,), generator=gen,
+                              device=dev).to(torch.float32)
+    else:
+        sizes = torch.rand(n, generator=gen, device=dev) * 256
+    return idx, valid, sizes
+
+
+def phase_load_kernel(dev, card: str) -> dict:
+    """The implied-load kernel against its plain version (the one-hot
+    compare-reduce) at the auctions' shapes: bitwise at integer sizes
+    (every sum exact), within LOAD_TOL at f32 sizes; two launches on one
+    input bitwise; timed beside its bound and index_add_."""
+    cuda_load = load_ops()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n, m = TIER
+    checked = {}
+    cases = {"tier": (n, MAX_COPIES, m, True),
+             "tier_f32": (n, MAX_COPIES, m, False),
+             "nsel": (n, MAX_COPIES, m, True),
+             "wide": (WIDE[0], MAX_COPIES, WIDE[1], True),
+             "ragged": (RAGGED[0], 3, RAGGED[1], True)}
+    for tag, (rows, slots, cols, integer) in cases.items():
+        idx, valid, sizes = load_operands(gen, rows, slots, cols, integer)
+        if tag == "nsel":  # the sparse auction's first 5 slots, as a view
+            idx, valid = idx[:, :5], valid[:, :5]
+        got = cuda_load.implied_load(idx, valid, sizes, cols)
+        again = cuda_load.implied_load(idx, valid, sizes, cols)
+        ref = cuda_load.implied_load_ref(idx, valid, sizes, cols)
+        err = float((got - ref).abs().max().item())
+        checked[tag] = {"shape": [rows, slots], "instances": cols,
+                        "max_abs_err": err,
+                        "differs_from_plain": bitwise_differs(got, ref)}
+        check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+              f"load {tag}: two launches on one input differ")
+        if integer:
+            check(torch.equal(got, ref),
+                  f"load {tag}: differs from the plain version at integer "
+                  f"sizes (max abs {err})")
+        else:
+            check(torch.allclose(got, ref, **LOAD_TOL),
+                  f"load {tag}: differs from the plain version "
+                  f"(max abs {err})")
+    idx, valid, sizes = load_operands(gen, n, MAX_COPIES, m)
+    contrib = (sizes[:, None] * valid.to(torch.float32)).reshape(-1)
+    flat = idx.reshape(-1)
+    nbytes = idx.numel() * 9 + n * 4 + m * 4
+    result = {
+        "shape": [n, MAX_COPIES], "instances": m,
+        "max_abs_err": checked["tier"]["max_abs_err"],
+        "ms": time_ms(lambda: cuda_load.implied_load(idx, valid, sizes, m),
+                      KERNEL_REPS),
+        "plain_ms": time_ms(
+            lambda: cuda_load.implied_load_ref(idx, valid, sizes, m), 5),
+        # index_add_ of the weights (built outside the timing).
+        "library_ms": time_ms(
+            lambda: torch.zeros(m, device=dev).index_add_(0, flat, contrib),
+            KERNEL_REPS),
+        "kernel_split_ms": kernel_split_ms(
+            lambda: cuda_load.implied_load(idx, valid, sizes, m),
+            KERNEL_REPS),
+        **bound("implied_load", nbytes, idx.numel(), card),
+    }
+    emit({"phase": "load_kernel", "card": card, "checked": checked,
+          "implied_load": result})
+    return {"implied_load": result}
 
 
 def lse_operands(shape, gen, scale: float = 1.0) -> dict:
@@ -609,7 +788,40 @@ def demand_of(cols) -> float:
     ))
 
 
+PLACEMENT_FIELDS = ("indices", "valid", "load", "prices", "f", "g",
+                    "overflow")
+
+
+def same_bytes(a, b) -> bool:
+    """a and b hold the same bytes (shape, dtype and every bit)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a = a.detach().reshape(-1).contiguous().view(torch.uint8)
+    return torch.equal(a, b.detach().reshape(-1).contiguous().view(
+        torch.uint8))
+
+
+def check_repeatable(dev, cols, cfg, tag: str) -> dict:
+    """Two solves of one snapshot with one seed: byte-identical Placements
+    (the implied load sums in a fixed order on the card)."""
+    sols = [dispatch_solve(cols, seed=42, config=cfg, device=dev).sol
+            for _ in range(2)]
+    differs = [f for f in PLACEMENT_FIELDS
+               if not same_bytes(getattr(sols[0], f), getattr(sols[1], f))]
+    check(not differs, f"{tag}: two same-seed solves differ in {differs}")
+    return {"fields": list(PLACEMENT_FIELDS), "byte_identical": True}
+
+
+def load_launches_expected(stats) -> int:
+    """Implied loads the auctions run: one per price iteration and one for
+    the epilogue's selection (a warm probe that certifies its carry runs
+    one iteration and no epilogue)."""
+    return sum(st["auction_iters_run"] + (st["auction_iters_run"] > 1)
+               for st in stats)
+
+
 def phase_main(dev, cols, snapshot_s: float) -> dict:
+    cuda_load = load_ops()
     cfg = solve_config_from_env()
 
     def one_solve(seed):
@@ -620,6 +832,7 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
     one_solve(1_000_000)                     # warm-up
     torch.cuda.synchronize()
     cuda_sparse.reset_launches()
+    cuda_load.reset_launches()
     syncs0 = device_mod.host_syncs
     times, stats = [], []
     for rep in range(MAIN_SOLVES):
@@ -627,7 +840,7 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
         plan = one_solve(rep)
         times.append((time.perf_counter() - t) * 1e3)
         stats.append(plan.stats)
-    launches = dict(cuda_sparse.launches)
+    launches = dict(cuda_sparse.launches, **cuda_load.launches)
     syncs = device_mod.host_syncs - syncs0
 
     demand = demand_of(cols)
@@ -637,17 +850,23 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
         check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
               "overflow not finite")
         check(math.isfinite(st["row_err"]), "row_err not finite")
-    # One mask packing per solve, one fused pass per Sinkhorn iteration,
-    # the row product alone only for the marginal-error gates, and no
-    # column-only pass at this width.
+    # One selection per solve (it packs the mask; no mask-only pass), one
+    # fused pass per Sinkhorn iteration, the row product alone only for the
+    # marginal-error gates, no column-only pass at this width, and the
+    # fixed-order implied load for every auction selection.
     iters = sum(st["sinkhorn_iters_run"] for st in stats)
-    check(launches["masked_row_min"] == MAIN_SOLVES
+    check(launches["select_candidates"] == MAIN_SOLVES
+          and launches["masked_row_min"] == 0
           and launches["masked_sinkhorn_step"] == iters
           and launches["masked_col_matvec"] == 0,
           f"sparse launches {launches} for {iters} Sinkhorn iterations")
-    for name in ("masked_row_min", "masked_row_matvec",
-                 "masked_sinkhorn_step"):
+    check(launches["implied_load"] == load_launches_expected(stats),
+          f"implied_load launches {launches['implied_load']} for auction "
+          f"iterations {[st['auction_iters_run'] for st in stats]}")
+    for name in ("select_candidates", "masked_row_matvec",
+                 "masked_sinkhorn_step", "implied_load"):
         check(launches[name] > 0, f"{name} never launched on the main path")
+    repeatable = check_repeatable(dev, cols, cfg, "main")
     check(plan.num_models() == MAIN_FLEET[0], "plan lost models")
     inst = set(cols.instance_ids)
     for mid in cols.model_ids[:: MAIN_FLEET[0] // 1000]:
@@ -673,6 +892,7 @@ def phase_main(dev, cols, snapshot_s: float) -> dict:
             k: c / MAIN_SOLVES for k, c in launches.items()
         },
         "host_syncs_per_solve": syncs / MAIN_SOLVES,
+        "repeatable": repeatable,
         "topk": stats[-1].get("topk"),
         "solver_path": stats[-1]["solver_path"],
         "sparse_impl": stats[-1]["sparse_impl"],
@@ -739,15 +959,18 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
 def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
                  path: str = "sparse") -> dict:
     """One snapshot solved on the card and on the CPU; returns the card
-    solve's kernel launches, sparse and LSE (counters zeroed just before
-    it)."""
+    solve's kernel launches, sparse, LSE and implied load (counters zeroed
+    just before it)."""
+    cuda_load = load_ops()
     cols = steady_fleet(*fleet)
     cfg = solve_config_from_env()
     torch.cuda.synchronize()
     cuda_sparse.reset_launches()
     cuda_lse.reset_launches()
+    cuda_load.reset_launches()
     gpu_run = dispatch_solve(cols, seed=5, config=cfg, device=dev)
-    launches = dict(cuda_sparse.launches, **cuda_lse.launches)
+    launches = dict(cuda_sparse.launches, **cuda_lse.launches,
+                    **cuda_load.launches)
     cpu_run = dispatch_solve(cols, seed=5, config=cfg, device="cpu")
     check(gpu_run.path == cpu_run.path == path,
           f"{phase}: paths {gpu_run.path}/{cpu_run.path}, want {path}")
@@ -781,7 +1004,8 @@ def phase_wide(dev) -> dict:
     got, iters = run["launches"], run["sinkhorn_iters_run"]
     check(got["masked_sinkhorn_step"] == 0,
           f"wide: the fused step ran at a width above its limit: {got}")
-    check(got["masked_col_matvec"] == iters and got["masked_row_min"] == 1,
+    check(got["masked_col_matvec"] == iters and got["select_candidates"] == 1
+          and got["masked_row_min"] == 0,
           f"wide: launches {got} for {iters} Sinkhorn iterations")
     return got
 
@@ -857,6 +1081,7 @@ def time_top_k(dev) -> dict:
 
 
 def phase_dense_main(dev, cols) -> dict:
+    cuda_load = load_ops()
     cfg = solve_config_from_env()
 
     def one_solve(seed, config=cfg):
@@ -869,6 +1094,7 @@ def phase_dense_main(dev, cols) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_lse.reset_launches()
     cuda_sparse.reset_launches()
+    cuda_load.reset_launches()
     syncs0 = device_mod.host_syncs
     times, stats = [], []
     for rep in range(MAIN_SOLVES):
@@ -876,7 +1102,7 @@ def phase_dense_main(dev, cols) -> dict:
         plan = one_solve(100 + rep)
         times.append((time.perf_counter() - t) * 1e3)
         stats.append(plan.stats)
-    launches = dict(cuda_lse.launches)
+    launches = dict(cuda_lse.launches, **cuda_load.launches)
     sparse_launches = dict(cuda_sparse.launches)
     syncs = device_mod.host_syncs - syncs0
     peak_bytes = torch.cuda.max_memory_allocated(dev)
@@ -896,11 +1122,15 @@ def phase_dense_main(dev, cols) -> dict:
             "col_lse_partial": 0}
     per_solve = {k: c / MAIN_SOLVES for k, c in launches.items()}
     if cfg.sinkhorn_tol <= 0:
-        check(per_solve == want, f"LSE launches per solve {per_solve}")
+        check({k: per_solve[k] for k in want} == want,
+              f"LSE launches per solve {per_solve}")
         if cfg.auction_stall_tol <= 0:
             check(syncs == MAIN_SOLVES,
                   f"{syncs / MAIN_SOLVES} host syncs per dense solve")
-    for name in ("lse_sinkhorn_step", "row_lse_partial"):
+    check(launches["implied_load"] == load_launches_expected(stats),
+          f"implied_load launches {launches['implied_load']} for auction "
+          f"iterations {[st['auction_iters_run'] for st in stats]}")
+    for name in ("lse_sinkhorn_step", "row_lse_partial", "implied_load"):
         check(launches[name] > 0, f"{name} never launched on the dense path")
     check(all(c == 0 for c in sparse_launches.values()),
           f"sparse kernels ran on the dense path: {sparse_launches}")
@@ -921,6 +1151,7 @@ def phase_dense_main(dev, cols) -> dict:
     gated_ms = (time.perf_counter() - t) * 1e3
     check(gated["solver_path"] == "dense" and math.isfinite(gated["overflow"]),
           "gated dense solve")
+    repeatable = check_repeatable(dev, cols, cfg, "dense_main")
     result = {
         "phase": "dense_main", "models": MAIN_FLEET[0],
         "instances": MAIN_FLEET[1], "padded": list(TIER),
@@ -938,6 +1169,7 @@ def phase_dense_main(dev, cols) -> dict:
         "launches_per_solve": per_solve,
         "host_syncs_per_solve": syncs / MAIN_SOLVES,
         "peak_device_bytes": peak_bytes,
+        "repeatable": repeatable,
         "solver_path": stats[-1]["solver_path"],
         "lse_impl": stats[-1]["lse_impl"],
         "gated": {
@@ -985,6 +1217,7 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card})
     kernels = phase_kernels(dev, card)
     lse_kernels = phase_lse_kernels(dev, card)
+    load_kernel = phase_load_kernel(dev, card)
     t0 = time.perf_counter()
     cols = steady_fleet(*MAIN_FLEET)
     main_run = phase_main(dev, cols, time.perf_counter() - t0)
@@ -1007,10 +1240,18 @@ def main() -> int:
                         col_lse_partial=dense_wide_launches["col_lse_partial"])
     lse_cells = dict.fromkeys(lse_launches, ("dense_main", MAIN_SOLVES))
     lse_cells["col_lse_partial"] = ("dense_wide", 1)
+    # The implied load runs in both auctions: its launches are the sparse
+    # main path's, the dense main path's beside them.
+    load_entries = kernel_entries(load_kernel, "implied_load",
+                                  main_run["launches"],
+                                  {"implied_load": ("main", MAIN_SOLVES)})
+    load_entries[0]["dense_main_launches"] = (
+        dense_run["launches"]["implied_load"])
     emit({"kernels": (
         kernel_entries(kernels, "masked_sparse", sparse_launches,
                        sparse_cells)
         + kernel_entries(lse_kernels, "lse", lse_launches, lse_cells)
+        + load_entries
     )})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

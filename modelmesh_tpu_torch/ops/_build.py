@@ -40,11 +40,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signature of every exported function, by library.
 SIGNATURES: dict[str, dict[str, list]] = {
     "masked_sparse": {
         "mm_masked_row_min": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        "mm_select_candidates": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P,
+        ],
+        "mm_select_max_cols": [],
+        "mm_gumbel_err_blocks": [],
+        "mm_gumbel_err": [_P, _P],
         "mm_masked_row_matvec": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
         "mm_masked_col_matvec": [
             _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
@@ -59,6 +66,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mm_lse_sinkhorn_step": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
         ],
+    },
+    "implied_load": {
+        "mm_implied_load": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P],
     },
 }
 

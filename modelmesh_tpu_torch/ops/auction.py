@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from modelmesh_tpu_torch import device as device_mod
+from modelmesh_tpu_torch.ops import cuda_load
 
 # Max copies of a single model the solver will place.
 MAX_COPIES: int = 8
@@ -175,22 +176,37 @@ def _select(scores_minus_price: torch.Tensor, copies: torch.Tensor):
     return _finalize_topk(vals, idx, copies)
 
 
-def _implied_load(idx, valid, sizes, num_instances: int) -> torch.Tensor:
-    """Memory load the assignment implies per instance (scatter-add)."""
+def _implied_load(idx, valid, sizes, num_instances: int,
+                  impl: str = "scatter") -> torch.Tensor:
+    """Memory load the assignment implies per instance: "scatter"
+    (``index_add_``; on the card its float atomics sum in another order on
+    every run) or "fused" (``cuda_load.implied_load``: the fixed-order
+    kernel on the card, the reference's one-hot compare-reduce on the
+    CPU). ``impl`` comes resolved (``resolve_load_impl``)."""
+    if impl not in ("scatter", "fused"):
+        raise ValueError(f"unresolved load impl {impl!r}")
+    if impl == "fused":
+        return cuda_load.implied_load(idx, valid, sizes, num_instances)
     contrib = sizes[:, None] * valid.to(torch.float32)  # [N, K]
     load = torch.zeros(num_instances, dtype=torch.float32, device=sizes.device)
     return load.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
 
 
-def resolve_load_impl(load_impl: str) -> str:
-    """The implied-load histogram is a scatter-add (``index_add_``); the
-    reference's "fused" compare-reduce exists for the TPU's serialized
-    scatter and is not ported."""
-    if load_impl not in ("auto", "scatter"):
+def resolve_load_impl(load_impl: str, device=None) -> str:
+    """Validate the implied-load knob and resolve "auto" for ``device``:
+    "fused" (the fixed-order kernel, reproducible run to run) for CUDA
+    tensors, "scatter" elsewhere, as the reference's "auto" means scatter
+    off the TPU. An explicit "scatter" on the card is ``index_add_``, whose
+    float atomics make the load, and so the placement, differ from run to
+    run."""
+    if load_impl not in ("auto", "scatter", "fused"):
         raise ValueError(
-            f"load_impl={load_impl!r} (expected auto | scatter)"
+            f"load_impl={load_impl!r} (expected auto | scatter | fused)"
         )
-    return "scatter"
+    if load_impl != "auto":
+        return load_impl
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    return "fused" if on_cuda else "scatter"
 
 
 def check_rounding_config(noise_impl: str, final_select: str, iters: int):
@@ -399,6 +415,7 @@ def auction(
     check_auction_config(noise_impl=noise_impl, final_select=final_select,
                          iters=iters, tau=tau, load_impl=load_impl)
     num_instances = capacity.shape[0]
+    load_impl = resolve_load_impl(load_impl, scores.device)
     seed = int(seed) & _MASK32
     scores_f32 = (
         gumbel_perturb(scores, tau, seed, impl=noise_impl)
@@ -417,7 +434,7 @@ def auction(
         return _select(scores_f32 - price[None, :], copies)
 
     def load_fn(idx, valid):
-        return _implied_load(idx, valid, sizes, num_instances)
+        return _implied_load(idx, valid, sizes, num_instances, load_impl)
 
     return price_repair(
         round_select, final_select_fn, load_fn, sizes, copies, cap,

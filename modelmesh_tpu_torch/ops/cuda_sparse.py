@@ -1,8 +1,10 @@
 """The sparse Sinkhorn's kernels: wrappers and plain versions.
 
 Port of ``modelmesh_tpu/ops/pallas_sparse.py``. The noisy top-K candidate
-mask is evaluated once per solve, by ``masked_row_min``, which also packs
-it into bits (int32[N, ceil(M / 32)], bit j of word w standing for column
+mask is evaluated once per solve, by ``select_candidates`` (the top-K
+gather, its K-th key as the row threshold, and ``masked_row_min``'s row
+minimum and bits, in one pass over C) or, given the thresholds, by
+``masked_row_min``, which also packs it into bits (int32[N, ceil(M / 32)], bit j of word w standing for column
 32 w + j, bits past M zero). Every later pass streams the cost matrix C
 and reads those bits, never a materialized bool mask or scaled kernel:
 
@@ -39,10 +41,14 @@ ROWS_PER_BLOCK = 256
 FUSED_MAX_COLS = 1024
 # Floor of r in the fused step (the solve's numerical floor).
 TINY = 1e-30
+# Widest C select_candidates' kernel takes: a warp stages a row's keys in
+# shared memory (csrc/masked_sparse.cu, kSelectMaxCols).
+SELECT_MAX_COLS = 16384
 
 # Kernel launches per wrapper since the process started (or the caller
 # last zeroed them with reset_launches()).
 launches = {
+    "select_candidates": 0,
     "masked_row_min": 0,
     "masked_row_matvec": 0,
     "masked_col_matvec": 0,
@@ -54,6 +60,16 @@ class CandidateRows(NamedTuple):
     """What ``masked_row_min`` returns: the masked row minimum and the
     candidate mask as bits."""
 
+    rowmin: torch.Tensor  # f32[N]
+    bits: torch.Tensor    # i32[N, ceil(M / 32)]
+
+
+class SelectedCandidates(NamedTuple):
+    """What ``select_candidates`` returns: the top-K gather and, for the
+    mask it defines, what ``masked_row_min`` returns."""
+
+    idx: torch.Tensor     # i64[N, K] the K smallest keys' columns, ascending
+    thresh: torch.Tensor  # f32[N] the K-th key
     rowmin: torch.Tensor  # f32[N]
     bits: torch.Tensor    # i32[N, ceil(M / 32)]
 
@@ -134,6 +150,21 @@ def masked_row_min_ref(C, thresh, x_row, *, tau: float,
     mask = candidate_mask(C, thresh, x_row, tau=tau, noised=noised)
     rowmin = torch.where(mask, C.to(torch.float32), torch.inf).amin(dim=1)
     return CandidateRows(rowmin, pack_mask(mask))
+
+
+def select_candidates_ref(C, x_row, k: int, *, tau: float,
+                          noised: bool) -> SelectedCandidates:
+    """Plain version of ``select_candidates``: the PyTorch-op key, the
+    tie-stable top-K (ties to the lower column, as ``jax.lax.top_k`` on
+    -key), the K-th key via a min over the descending values (as the
+    reference takes it), then ``masked_row_min_ref``."""
+    key = selection_key(C, x_row, tau=tau, noised=noised)
+    neg_vals, idx = auction.top_k(-key, k)
+    idx = idx.contiguous()  # frees the sorted rows it is a view of
+    thresh = -neg_vals.amin(dim=1)
+    rowmin, bits = masked_row_min_ref(C, thresh, x_row, tau=tau,
+                                      noised=noised)
+    return SelectedCandidates(idx, thresh, rowmin, bits)
 
 
 def masked_row_matvec_ref(C, bits, rowmin, v, *, eps: float):
@@ -224,6 +255,60 @@ def masked_row_min(C, thresh, x_row, *, tau: float,
             out.data_ptr(), bits.data_ptr(), n, m, tau, int(noised),
         )
     return CandidateRows(out, bits)
+
+
+def select_candidates(C, x_row, k: int, *, tau: float, noised: bool,
+                      exact_counts: torch.Tensor | None = None
+                      ) -> SelectedCandidates:
+    """Each row's ``min(k, M)`` smallest selection keys (ascending, ties to
+    the lower column), the K-th key as the row threshold, and the masked
+    row minimum and mask bits under it; exact, so the kernel and the plain
+    version agree bitwise. ``exact_counts`` (int32[N], kernel only) takes
+    the entries per row whose exact key the kernel computed (the guard
+    band's members)."""
+    k = min(int(k), C.shape[1])
+    if k < 1:
+        raise ValueError(f"k={k}: select at least one column")
+    if C.device.type == "cpu":
+        _build.check_cpu(x_row)
+        if exact_counts is not None:
+            raise ValueError("exact_counts is the kernel's diagnostic")
+        return select_candidates_ref(C, x_row, k, tau=tau, noised=noised)
+    n, m = _check_cuda(C, rows=[("x_row", x_row, torch.int32)])
+    if m > SELECT_MAX_COLS:
+        raise ValueError(f"select_candidates takes at most "
+                         f"{SELECT_MAX_COLS} columns (got {m})")
+    if exact_counts is not None:
+        _build.check_vectors(C, rows=[("exact_counts", exact_counts,
+                                       torch.int32)])
+    dev = C.device
+    idx = torch.empty((n, k), dtype=torch.int64, device=dev)
+    thresh = torch.empty(n, dtype=torch.float32, device=dev)
+    rowmin = torch.empty(n, dtype=torch.float32, device=dev)
+    bits = torch.empty((n, mask_words(m)), dtype=torch.int32, device=dev)
+    if n:
+        _launch(
+            "select_candidates", "mm_select_candidates", dev,
+            C.data_ptr(), x_row.data_ptr(), idx.data_ptr(),
+            thresh.data_ptr(), rowmin.data_ptr(), bits.data_ptr(),
+            None if exact_counts is None else exact_counts.data_ptr(),
+            n, m, k, tau, int(noised),
+        )
+    return SelectedCandidates(idx, thresh, rowmin, bits)
+
+
+def gumbel_err(device) -> tuple[float, float]:
+    """The guard band's check, on the card: the largest |g - g'| between
+    the exact and the fast hash-Gumbel draw over all 2^24 uniforms, and
+    the bound the kernels were built with."""
+    lib = _build.load_library(LIB)
+    out = torch.empty(1 + lib.mm_gumbel_err_blocks(), dtype=torch.float32,
+                      device=device)
+    _build.launch(LIB, "mm_gumbel_err", out.device, out.data_ptr())
+    got = out.cpu()
+    errs = got[1:]
+    worst = float("nan") if torch.isnan(errs).any() else float(errs.max())
+    return worst, float(got[0])
 
 
 def masked_row_matvec(C, bits, rowmin, v, *, eps: float):

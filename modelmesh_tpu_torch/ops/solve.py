@@ -38,7 +38,9 @@ class SolveConfig(NamedTuple):
     # Dense-tier LSE kernels: auto (CUDA kernels for CUDA tensors, their
     # plain PyTorch versions for CPU tensors) | cuda (CUDA tensors required).
     lse_impl: str = "auto"
-    # Implied-load histogram: auto | scatter (index_add_).
+    # Implied-load histogram: auto (fused for CUDA tensors, scatter for
+    # CPU tensors) | scatter (index_add_; not reproducible on the card) |
+    # fused (the fixed-order kernel; on the CPU its one-hot plain version).
     load_impl: str = "auto"
     noise_impl: str = "hash"
     final_select: str = "exact"

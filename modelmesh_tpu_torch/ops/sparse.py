@@ -2,14 +2,15 @@
 
 Port of ``modelmesh_tpu/ops/sparse.py`` (the design notes are there):
 
-1. ``topk_candidates``: one pass over the assembled cost gathers each
-   model's K cheapest instances by a noisy selection key, and keeps the
-   row's K-th key as the threshold that defines the candidate mask.
+1. ``topk_candidates``: one pass over the assembled cost
+   (``cuda_sparse.select_candidates``) gathers each model's K cheapest
+   instances by a noisy selection key, keeps the row's K-th key as the
+   threshold that defines the candidate mask, and packs that mask into
+   bits with the masked row minimum.
 2. ``sparse_sinkhorn``: scaled-kernel Sinkhorn over the masked candidate
-   set, always through the kernels of ``cuda_sparse``: the mask is
-   evaluated once per solve from C, the thresholds and the row hash state
-   and packed into bits, and each iteration is one pass over C and the
-   bits; neither a bool mask nor the scaled kernel is materialized.
+   set, always through the kernels of ``cuda_sparse``: each iteration is
+   one pass over C and the gather's bits; neither a bool mask nor the
+   scaled kernel is materialized.
 3. ``sparse_auction``: price repair over the fixed gathered candidates.
 
 Rounding noise is the positional hash-Gumbel draw, a pure function of
@@ -35,7 +36,6 @@ from modelmesh_tpu_torch.ops.auction import (
     price_repair,
     resolve_load_impl,
     select_from_candidates,
-    top_k,
 )
 from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, run_sinkhorn
 
@@ -50,13 +50,16 @@ _TINY = cuda_sparse.TINY
 
 
 class FusedGather(NamedTuple):
-    """What ``masked_row_min`` needs to evaluate the candidate mask: the
-    row's K-th selection key and the row-side hash state of the draw."""
+    """The candidate mask of the gather: the row's K-th selection key and
+    the row-side hash state of the draw (what ``masked_row_min`` evaluates
+    the mask from), the masked row minimum and the mask bits."""
 
     thresh: torch.Tensor  # f32[N] K-th (tie-inclusive) selection key
     x_row: torch.Tensor   # i32[N] row-side hash state (uint32 bits)
     tau: float
     noised: bool
+    rowmin: torch.Tensor  # f32[N]
+    bits: torch.Tensor    # i32[N, ceil(M / 32)]
 
 
 def resolve_sparse_impl(sparse_impl: str, device: torch.device) -> str:
@@ -85,19 +88,16 @@ def topk_candidates(
     noised = seed is not None
     salted = 0 if seed is None else (int(seed) ^ _GATHER_SALT) & 0xFFFFFFFF
     x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device)
-    key = cuda_sparse.selection_key(C, x_row, tau=GATHER_TAU, noised=noised)
     # Ties (equal keys: no noise, or the coarse INFEASIBLE penalty) go to
     # the lower column, as jax.lax.top_k breaks them.
-    neg_vals, idx = top_k(-key, k)
-    idx = idx.contiguous()  # frees the sorted rows it is a view of
-    # K-th selection key via a min over the descending values, as the
-    # reference takes it.
-    kth = -neg_vals.amin(dim=1)
-    fused = FusedGather(thresh=kth, x_row=x_row, tau=GATHER_TAU, noised=noised)
+    sel = cuda_sparse.select_candidates(C, x_row, k, tau=GATHER_TAU,
+                                        noised=noised)
+    fused = FusedGather(thresh=sel.thresh, x_row=x_row, tau=GATHER_TAU,
+                        noised=noised, rowmin=sel.rowmin, bits=sel.bits)
     return (
-        torch.gather(C, 1, idx),
-        idx,
-        torch.gather(feasible, 1, idx),
+        torch.gather(C, 1, sel.idx),
+        sel.idx,
+        torch.gather(feasible, 1, sel.idx),
         fused,
     )
 
@@ -123,7 +123,7 @@ def sparse_sinkhorn(
         g = min(0, eps * (log b - log(u @ P)))
 
     with ``P = exp((rowmin - C) / eps) * mask`` applied by the kernels,
-    never built. ``masked_row_min`` packs the mask once; up to
+    never built. The mask comes packed from the gather; up to
     ``FUSED_MAX_COLS`` columns an iteration's two products are one fused
     pass over C (``masked_sinkhorn_step``), wider they run back to back.
     """
@@ -131,9 +131,7 @@ def sparse_sinkhorn(
     col_mass = col_mass.to(torch.float32)
     log_a = torch.log(torch.clamp_min(row_mass, _TINY))
     log_b = torch.log(torch.clamp_min(col_mass, _TINY))
-    rowmin, bits = cuda_sparse.masked_row_min(
-        C, fused.thresh, fused.x_row, tau=fused.tau, noised=fused.noised
-    )
+    rowmin, bits = fused.rowmin, fused.bits
     one_pass = C.shape[1] <= cuda_sparse.FUSED_MAX_COLS
 
     def row_terms(v):
@@ -183,19 +181,24 @@ def sparse_auction(
     stall_tol: float = 0.0,
     price0: torch.Tensor | None = None,
     sel_k: int = MAX_COPIES,
+    load_impl: str = "auto",
 ) -> AuctionResult:
     """Price repair over a fixed candidate set (``price_repair``, with the
     reference's best-iterate tracking, warm probe and stall gates); every
-    selection, the epilogue's included, is within the candidates."""
+    selection, the epilogue's included, is within the candidates.
+    ``load_impl`` as ``auction.resolve_load_impl`` resolves it on the
+    problem's device."""
     num_instances = capacity.shape[0]
+    load_impl = resolve_load_impl(load_impl, capacity.device)
     cap = torch.clamp_min(capacity.to(torch.float32), 1e-6)
     copies = torch.clamp_max(copies, MAX_COPIES)
     nsel = min(sel_k, MAX_COPIES)
 
     def implied_load(idx, valid):
-        # Slots past sel_k are padding (never valid): skip them.
+        # Slots past sel_k are padding (never valid): skip them. The
+        # fixed-order kernel takes the slice by its row stride.
         return _implied_load(
-            idx[:, :nsel], valid[:, :nsel], sizes, num_instances
+            idx[:, :nsel], valid[:, :nsel], sizes, num_instances, load_impl
         )
 
     def select(price):
@@ -275,6 +278,7 @@ def solve_sparse(problem, config, seed: int, init):
         stall_tol=config.auction_stall_tol,
         price0=None if init is None else init.price0,
         sel_k=config.sel_width or MAX_COPIES,
+        load_impl=config.load_impl,
     )
     return Placement(
         indices=res.indices, valid=res.valid, load=res.load,

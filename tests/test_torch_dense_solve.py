@@ -296,7 +296,7 @@ def test_cpu_dense_solve_launches_no_kernel(solve_problems, monkeypatch):
 
 @pytest.mark.parametrize("bad,err,match", [
     (dict(noise_impl="threefry"), NotImplementedError, "threefry"),
-    (dict(load_impl="fused"), ValueError, "load_impl"),
+    (dict(load_impl="onehot"), ValueError, "load_impl"),
     (dict(lse_impl="cuda"), ValueError, "CUDA device"),
     (dict(lse_impl="pallas"), ValueError, "lse_impl"),
     (dict(final_select="none", auction_iters=0), ValueError, "iters >= 1"),

@@ -345,6 +345,8 @@ def _operands(device, n=8, m=16):
 
 # Each wrapper called on a dict of operands (``_operands``).
 WRAPPERS = {
+    "select_candidates": lambda o: cuda_sparse.select_candidates(
+        o["C"], o["x_row"], 4, tau=0.5, noised=True),
     "masked_row_min": lambda o: cuda_sparse.masked_row_min(
         o["C"], o["thresh"], o["x_row"], tau=0.5, noised=True),
     "masked_row_matvec": lambda o: cuda_sparse.masked_row_matvec(
@@ -354,7 +356,8 @@ WRAPPERS = {
     "masked_sinkhorn_step": lambda o: cuda_sparse.masked_sinkhorn_step(
         o["C"], o["bits"], o["rowmin"], o["v"], o["row_mass"], eps=0.05),
 }
-BITS_WRAPPERS = [name for name in WRAPPERS if name != "masked_row_min"]
+BITS_WRAPPERS = [name for name in WRAPPERS
+                 if name not in ("masked_row_min", "select_candidates")]
 
 
 class TestWrapperRouting:

@@ -10,6 +10,13 @@ operands: one method for two trees, so an older commit unpacked into ROOT
 (``git archive``) is timed beside this one, in one run on the same card.
 Takes the sparse wrappers before the packed mask bits (each pass recomputes
 the mask from the thresholds) and after (``cuda_sparse.CandidateRows``).
+The top-K gather at the tier (K = 24): the unfused route (PyTorch-op key,
+stable top-K, the K-th key, the mask-only kernel ``masked_row_min``), the
+one-pass selection kernel where the tree has one
+(``cuda_sparse.select_candidates``), and the main path's gather as the
+tree runs it (``topk_candidates``, then ``masked_row_min`` where the gather
+does not pack the mask); each with its device time by kernel. The implied
+load where the tree has the kernel (``cuda_load``), beside index_add_.
 The LSE wrappers are timed at [131072, 1024] and at the dense tier's real
 width [131072, 128]: the row and column kernels, one unfused iteration
 (row LSE, f, column LSE) back to back, and the fused step where the tree
@@ -75,8 +82,14 @@ def main(argv) -> int:
     calls["masked_col_matvec"] = lambda: cuda_sparse.masked_col_matvec(
         *lead, u, eps=eps, **mask_kw)
     ms = {name: cs.time_ms(fn, cs.KERNEL_REPS) for name, fn in calls.items()}
+    gather = {name: {"ms": cs.time_ms(fn, 5),
+                     "device_ms": cs.kernel_split_ms(fn, 5)}
+              for name, fn in gather_calls(cs, C).items()}
+    for entry in gather.values():
+        entry["device_total_ms"] = sum(entry["device_ms"].values())
     del C, thresh, x_row, rowmin, lead, calls
     torch.cuda.empty_cache()
+    load = load_times(cs, gen)
 
     lse = {}
     for width in (m, 128):
@@ -93,10 +106,59 @@ def main(argv) -> int:
     print(card)
     print(json.dumps({
         "root": root, "card": card, "shape": [n, m],
-        "reps": cs.KERNEL_REPS, "ms": ms,
+        "reps": cs.KERNEL_REPS, "ms": ms, "gather": gather, "load": load,
         "lse": {f"{n}x{width}": by_name for width, by_name in lse.items()},
     }), flush=True)
     return 0
+
+
+def gather_calls(cs, C) -> dict:
+    """The top-K gather of C by each route the tree has."""
+    import torch
+    from modelmesh_tpu_torch.ops import auction, cuda_sparse, sparse
+
+    k = cs.SPARSE_K
+    x_row, kw = cs.selection_operands(C)
+    feasible = torch.ones(C.shape, dtype=torch.bool, device=C.device)
+
+    def unfused_route():
+        key = cuda_sparse.selection_key(C, x_row, **kw)
+        neg_vals, _ = auction.top_k(-key, k)
+        cuda_sparse.masked_row_min(C, -neg_vals.amin(dim=1), x_row, **kw)
+
+    def main_gather():
+        _, _, _, fz = sparse.topk_candidates(C, feasible, k, seed=cs.SEED)
+        if getattr(fz, "bits", None) is None:
+            cuda_sparse.masked_row_min(C, fz.thresh, fz.x_row, tau=fz.tau,
+                                       noised=fz.noised)
+
+    calls = {"unfused_route": unfused_route, "main_gather": main_gather}
+    if hasattr(cuda_sparse, "select_candidates"):
+        calls["select_candidates"] = lambda: cuda_sparse.select_candidates(
+            C, x_row, k, **kw)
+    return calls
+
+
+def load_times(cs, gen) -> dict:
+    """The implied load at the auctions' shape, where the tree has the
+    kernel, beside index_add_ of the same weights."""
+    import torch
+    from modelmesh_tpu_torch.ops import auction
+
+    n, m = cs.TIER
+    idx, valid, sizes = cs.load_operands(gen, n, auction.MAX_COPIES, m)
+    contrib = (sizes[:, None] * valid.to(torch.float32)).reshape(-1)
+    flat = idx.reshape(-1)
+    out = {"index_add_ms": cs.time_ms(
+        lambda: torch.zeros(m, device=idx.device).index_add_(0, flat, contrib),
+        cs.KERNEL_REPS)}
+    if importlib.util.find_spec("modelmesh_tpu_torch.ops.cuda_load") is None:
+        return out
+    from modelmesh_tpu_torch.ops import cuda_load
+
+    out["implied_load_ms"] = cs.time_ms(
+        lambda: cuda_load.implied_load(idx, valid, sizes, m), cs.KERNEL_REPS)
+    return out
 
 
 def dense_lse_calls(cuda_lse, cs, n: int, m: int, gen) -> dict:
