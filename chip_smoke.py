@@ -79,6 +79,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              pinned dense, on the card and on the CPU, with phase 4's
              gates: the row and column LSE back to back on every
              iteration, no fused step; the column-only kernel's path.
+8. steady — the steady state at the main fleet (bench.py's
+             _measure_solver_paths, run_path("1", 0.05) and
+             run_path("1", 0.0)) through ``TorchPlacementStrategy``, the
+             records kept and churned: each cycle 1,000 models (n // 100,
+             from the fleet's rng) get last_used = now and a fresh rpm,
+             all marked dirty, then refresh(incremental=True). One
+             throwaway refresh, a cold one and 6 cycles with the dirty-row
+             re-solve allowed (incr_max_dirty_frac 0.05): at least 5
+             incremental, fallbacks counted; each incremental refresh makes
+             1 host sync, stays within the base's overflow + 0.5% of
+             demand, and launches the row LSE (kernel 4) and the implied
+             load once each and nothing else (counters zeroed just before
+             each refresh). Two re-solves on one base byte-identical; one
+             more refresh staged by hand (patch, expansion, sizes @ loaded,
+             cost rows, re-solve, readback, extraction) and profiled; the
+             same churn with full warm sparse solves on delta snapshots
+             (incr_max_dirty_frac 0); at 20,000 x 256, 3 cycles through a
+             CPU and a CUDA strategy: both incremental at least once,
+             agreement >= 0.97, overflow within 0.5% of demand; kernel 4
+             at bf16 [1024, 1024] against its plain version, timed beside
+             its bound and torch.logsumexp.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -102,13 +123,16 @@ from modelmesh_tpu_torch.ops import (
     _build, auction, cuda_lse, cuda_sparse, sparse,
 )
 from modelmesh_tpu_torch.ops.auction import K_CAND, MAX_COPIES
+from modelmesh_tpu_torch.placement.strategy import PlacementStrategy
 from modelmesh_tpu_torch.placement.synthetic import synthetic_records
 from modelmesh_tpu_torch.placement.torch_engine import (
+    TorchPlacementStrategy,
     dispatch_solve,
     finalize_plan,
     snapshot_columns,
     solve_config_from_env,
 )
+from modelmesh_tpu_torch.records import now_ms
 
 SEED = 20260
 TIER = (131072, 1024)          # _bucket(100_000) x _bucket(1_000, 64)
@@ -122,6 +146,13 @@ DENSE_PARITY_FLEET = (10_000, 128)   # pads to 128 columns: auto routes dense
 STEADY_UTILIZATION = 0.85
 KERNEL_REPS = 20
 MAIN_SOLVES = 5
+# The steady cell: churn cycles per run, the incremental cycles the run
+# must see, the parity fleet's cycles, and kernel 4's shape there (the
+# dirty rows of one cycle padded to a bucket of 64).
+STEADY_CYCLES = 6
+STEADY_MIN_INCREMENTAL = 5
+STEADY_PARITY_CYCLES = 3
+STEADY_LSE_SHAPE = (1024, 1024)
 # Published H100 peaks (NVIDIA data sheets): device memory bytes/s by part,
 # and f32 operations/s outside the tensor cores.
 PEAK_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
@@ -769,9 +800,10 @@ def lse_times(op: dict, errors: dict, card: str) -> dict:
     return out
 
 
-def steady_fleet(n: int, m: int):
+def steady_records(n: int, m: int):
     """Synthetic fleet at 85% utilization with seeded rpm (the JAX bench's
-    _steady_fleet rule)."""
+    _steady_fleet rule). Returns (models, instances, rpm, rng): the rng
+    goes on to draw the churn."""
     models, instances = synthetic_records(n, m)
     demand = sum(mr.size_units for _, mr in models)
     cap = max(1, round(demand / (STEADY_UTILIZATION * m)))
@@ -779,6 +811,12 @@ def steady_fleet(n: int, m: int):
         rec.capacity_units = cap
     rng = np.random.default_rng(0)
     rpm = {f"m{i}": int(v) for i, v in enumerate(rng.integers(0, 50, n))}
+    return models, instances, rpm, rng
+
+
+def steady_fleet(n: int, m: int):
+    """The snapshot of ``steady_records``' fleet."""
+    models, instances, rpm, _ = steady_records(n, m)
     return snapshot_columns(models, instances, rpm)
 
 
@@ -1030,11 +1068,11 @@ def phase_dense_wide(dev) -> dict:
 
 
 @contextlib.contextmanager
-def dense_pin():
-    """MM_SOLVER_SPARSE=0 for the duration, restored after (bench.py's
-    run_path pin)."""
+def solver_pin(value: str):
+    """MM_SOLVER_SPARSE=``value`` for the duration, restored after
+    (bench.py's run_path pin)."""
     prev = os.environ.get("MM_SOLVER_SPARSE")
-    os.environ["MM_SOLVER_SPARSE"] = "0"
+    os.environ["MM_SOLVER_SPARSE"] = value
     try:
         yield
     finally:
@@ -1042,6 +1080,11 @@ def dense_pin():
             os.environ.pop("MM_SOLVER_SPARSE", None)
         else:
             os.environ["MM_SOLVER_SPARSE"] = prev
+
+
+def dense_pin():
+    """MM_SOLVER_SPARSE=0 for the duration."""
+    return solver_pin("0")
 
 
 def packed_key_top_k(x, k: int):
@@ -1187,6 +1230,328 @@ def phase_dense_main(dev, cols) -> dict:
     return result
 
 
+class NoDecisions(PlacementStrategy):
+    """The fallback a ``TorchPlacementStrategy`` requires. The smoke run
+    refreshes plans and makes no placement decision, so it answers none."""
+
+    def choose_load_target(self, req, view):
+        return None
+
+    def choose_serve_target(self, model, view, exclude):
+        return None
+
+
+def steady_solve_config():
+    """bench.py's _steady_solve_config: the steady gates
+    (sinkhorn_tol 0.02, auction_stall_tol 1e-3) unless the operator pinned
+    them."""
+    cfg = solve_config_from_env()
+    if not os.environ.get("MM_SOLVER_SINKHORN_TOL"):
+        cfg = cfg._replace(sinkhorn_tol=0.02)
+    if not os.environ.get("MM_SOLVER_AUCTION_STALL_TOL"):
+        cfg = cfg._replace(auction_stall_tol=1e-3)
+    return cfg
+
+
+def new_strategy(dev, frac: float) -> TorchPlacementStrategy:
+    strat = TorchPlacementStrategy(fallback=NoDecisions(),
+                                   solve_config=steady_solve_config(),
+                                   device=dev)
+    strat.incr_max_dirty_frac = frac
+    return strat
+
+
+def churn(fleet) -> list:
+    """bench.py's churn: ~1% of models (n // 100, drawn from the fleet's
+    rng) get last_used = now and a fresh rpm in 0-49; model-only."""
+    models, _, rpm, rng = fleet
+    n = len(models)
+    dirty = []
+    now = now_ms()
+    for i in rng.integers(0, n, max(1, n // 100)):
+        mid, mr = models[int(i)]
+        mr.last_used = now
+        rpm[mid] = int(rng.integers(0, 50))
+        dirty.append(mid)
+    return dirty
+
+
+def all_launches() -> dict:
+    return dict(load_ops().launches, **cuda_sparse.launches,
+                **cuda_lse.launches)
+
+
+def reset_all_launches() -> None:
+    for mod in (load_ops(), cuda_sparse, cuda_lse):
+        mod.reset_launches()
+
+
+def steady_cycle(strat, fleet, dev) -> dict:
+    """One churn cycle: mark the churned models dirty, refresh
+    incrementally; the launch counters zeroed just before the refresh and
+    read just after."""
+    models, instances, rpm, _ = fleet
+    strat.mark_dirty(churn(fleet), [])
+    torch.cuda.synchronize(dev)
+    reset_all_launches()
+    syncs0 = device_mod.host_syncs
+    t = time.perf_counter()
+    plan = strat.refresh(models, instances, rpm, incremental=True)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    return {"stats": dict(plan.stats), "wall_ms": wall_ms,
+            "launches": all_launches(),
+            "host_syncs": device_mod.host_syncs - syncs0,
+            "base_overflow": strat._base.overflow, "plan": plan}
+
+
+def summary(values) -> dict:
+    return {"median": float(np.median(values)), "max": float(np.max(values)),
+            "all": [float(v) for v in values]}
+
+
+SPARSE_NAMES = ("select_candidates", "masked_row_min", "masked_row_matvec",
+                "masked_col_matvec", "masked_sinkhorn_step")
+
+
+def steady_run(dev, fleet, frac: float, tag: str, demand: float) -> dict:
+    """A cold refresh and STEADY_CYCLES churn cycles through one strategy
+    (after a throwaway refresh), under the sparse pin. With ``frac`` > 0
+    the incremental cycles are checked: one host sync, the drift budget,
+    the row LSE and the implied load once each and nothing else."""
+    models, instances, rpm, _ = fleet
+    with solver_pin("1"):
+        new_strategy(dev, frac).refresh(models, instances, rpm)
+        strat = new_strategy(dev, frac)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        cold = strat.refresh(models, instances, rpm)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        cycles = [steady_cycle(strat, fleet, dev)
+                  for _ in range(STEADY_CYCLES)]
+    paths = [c["stats"]["solver_path"] for c in cycles]
+    incr = [c for c in cycles if c["stats"]["solver_path"] == "incremental"]
+    counted = incr if frac > 0 else cycles
+    for c in counted:
+        st = c["stats"]
+        check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
+              f"{tag}: overflow not finite")
+    for c in incr:
+        st, got = c["stats"], c["launches"]
+        check(st["lse_impl"] == "cuda", f"{tag}: lse_impl {st['lse_impl']}")
+        check(c["host_syncs"] == 1 and st["host_syncs"] == 1,
+              f"{tag}: {c['host_syncs']} host syncs in an incremental "
+              "refresh")
+        check(st["overflow"] <= c["base_overflow"] + 0.005 * demand,
+              f"{tag}: merged overflow {st['overflow']} past the base's "
+              f"{c['base_overflow']} + 0.5% of demand")
+        want = dict.fromkeys(got, 0)
+        want.update(row_lse_partial=1, implied_load=1)
+        check(got == want, f"{tag}: launches in an incremental refresh "
+              f"{got}, want {want}")
+    if frac <= 0:
+        for c in cycles:
+            check(c["stats"]["solver_path"] == "sparse"
+                  and c["stats"]["sparse_impl"] == "cuda",
+                  f"{tag}: full warm cycle took {c['stats']['solver_path']}")
+    out = {
+        "cycles": len(cycles), "paths": paths,
+        "incremental_cycles": len(incr),
+        "fallback_cycles": len(cycles) - len(incr) if frac > 0 else 0,
+        "cold_ms": cold_ms, "cold_solve_ms": cold.stats["solve_ms"],
+        "dirty_rows": [c["stats"].get("dirty_rows") for c in cycles],
+        "host_syncs": [c["host_syncs"] for c in cycles],
+        "overflow_frac": [c["stats"]["overflow"] / demand for c in cycles],
+        "base_overflow_frac": [c["base_overflow"] / demand for c in cycles],
+        "launches": [c["launches"] for c in cycles],
+        "warm": [c["stats"]["warm"] for c in cycles],
+    }
+    for key in ("solve_ms", "snapshot_ms", "extract_ms"):
+        out[key] = summary([c["stats"][key] for c in counted])
+    out["wall_ms"] = summary([c["wall_ms"] for c in counted])
+    if incr:
+        out["launches_per_incremental_refresh"] = incr[-1]["launches"]
+    return {"summary": out, "strategy": strat}
+
+
+def steady_stages(dev, strat, fleet) -> dict:
+    """Where an incremental refresh's time goes: one more churn cycle's
+    refresh staged by hand, each stage ended by a device sync (the patch,
+    the device expansion, the full-width ``sizes @ loaded`` of the cost
+    rows, the rest of the cost rows, the re-solve, the readback and the
+    extraction), then the same refresh again under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modelmesh_tpu_torch.ops import costs
+    from modelmesh_tpu_torch.ops.solve import solve_placement_incremental
+    from modelmesh_tpu_torch.placement import torch_engine as te
+
+    models, instances, rpm, _ = fleet
+    dirty = churn(fleet)
+    cfg = steady_solve_config()
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        stages[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    with solver_pin("1"):
+        cache = strat._snap_cache
+        cols = stage("patch_ms", lambda: te.patch_columns(
+            cache, models, instances, rpm, set(dirty), set()))
+        check(cols is not None, "steady: the delta patch fell back")
+        # The part of the patch that reads every record: rpm re-read.
+        stage("patch_rpm_reread_ms", lambda: te._rpm_column(
+            rpm, cols.model_ids, len(cols.model_ids)))
+        rows = sorted(cache.model_pos[mid] for mid in dirty)
+        base = strat._base
+        n_pad = base.indices.shape[0]
+        padded = np.full(te._bucket(len(rows), 64), n_pad, np.int64)
+        padded[: len(rows)] = rows
+        problem = stage("expand_ms",
+                        lambda: te._expand_problem_device(cols, dev))
+        d_rows = torch.from_numpy(np.minimum(padded, n_pad - 1)).to(dev)
+        stage("loaded_mass_ms",
+              lambda: problem.sizes @ problem.loaded.to(torch.float32))
+        stage("cost_rows_ms", lambda: costs.assemble_cost_rows(
+            problem, d_rows, dtype=cfg.dtype))
+        sol = stage("resolve_ms", lambda: solve_placement_incremental(
+            problem, cfg, strat._seed, torch.from_numpy(padded).to(dev),
+            base.indices, base.valid, base.g, base.prices, base.row_err))
+        pending = te.PendingSolve(cols=cols, sol=sol,
+                                  t_start=time.perf_counter(),
+                                  t_snapshot=time.perf_counter(), warm=True,
+                                  path="incremental", dirty_rows=len(rows))
+        plan = stage("finalize_ms", lambda: te.finalize_plan(pending))
+        stages["readback_and_pack_ms"] = plan.stats["solve_ms"]
+        stages["extract_ms"] = plan.stats["extract_ms"]
+        stages["dirty_rows"] = len(rows)
+        # The whole refresh through the strategy, profiled.
+        strat.mark_dirty(dirty, [])
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            prof_plan = strat.refresh(models, instances, rpm,
+                                      incremental=True)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"stages": stages,
+            "profile": {"solver_path": prof_plan.stats["solver_path"],
+                        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                        "device_idle_share": 1.0 - busy_ms / wall_ms,
+                        "top": [{"name": k, "ms": ms, "count": c}
+                                for k, (ms, c) in top]}}
+
+
+def check_incremental_repeatable(dev, strat, fleet) -> dict:
+    """Two ``dispatch_solve(cols, seed, base=, dirty_rows=)`` calls on one
+    base: byte-identical indices, valid, load and overflow."""
+    cache, base = strat._snap_cache, strat._base
+    models = fleet[0]
+    rows = sorted(cache.model_pos[models[i][0]]
+                  for i in range(0, len(models), 97))
+    with solver_pin("1"):
+        sols = [dispatch_solve(cache.cols, seed=strat._seed,
+                               config=steady_solve_config(), base=base,
+                               dirty_rows=rows, device=dev).sol
+                for _ in range(2)]
+    fields = ("indices", "valid", "load", "overflow")
+    differs = [f for f in fields
+               if not same_bytes(getattr(sols[0], f), getattr(sols[1], f))]
+    check(not differs, f"steady: two incremental re-solves on one base "
+          f"differ in {differs}")
+    return {"fields": list(fields), "dirty_rows": len(rows),
+            "byte_identical": True}
+
+
+def steady_parity(dev) -> dict:
+    """The same churn (3 cycles) at the parity fleet through a CPU
+    strategy (plain versions) and a CUDA one: each takes the incremental
+    path at least once; on the last plans placement agreement >= 0.97 and
+    overflow within 0.5% of demand."""
+    fleet = steady_records(*PARITY_FLEET)
+    models, instances, rpm, _ = fleet
+    demand = demand_of(snapshot_columns(models, instances, rpm))
+    strats = {"cpu": new_strategy("cpu", 0.05), "gpu": new_strategy(dev, 0.05)}
+    paths = {k: [] for k in strats}
+    with solver_pin("1"):
+        plans = {k: st.refresh(models, instances, rpm)
+                 for k, st in strats.items()}
+        for _ in range(STEADY_PARITY_CYCLES):
+            dirty = churn(fleet)
+            for k, st in strats.items():
+                st.mark_dirty(dirty, [])
+                plans[k] = st.refresh(models, instances, rpm,
+                                      incremental=True)
+                paths[k].append(plans[k].stats["solver_path"])
+    for k in strats:
+        check("incremental" in paths[k],
+              f"steady parity: the {k} strategy never took the "
+              f"incremental path ({paths[k]})")
+    gpu, cpu = plans["gpu"], plans["cpu"]
+    agree = float(np.mean([gpu.lookup(mid) == cpu.lookup(mid)
+                           for mid, _ in models]))
+    d_over = abs(gpu.stats["overflow"] - cpu.stats["overflow"])
+    out = {"models": PARITY_FLEET[0], "instances": PARITY_FLEET[1],
+           "cycles": STEADY_PARITY_CYCLES, "paths": paths,
+           "agreement": agree, "overflow_gpu": gpu.stats["overflow"],
+           "overflow_cpu": cpu.stats["overflow"],
+           "overflow_diff_frac": d_over / demand}
+    check(agree >= 0.97, f"steady parity: GPU/CPU agreement {agree}")
+    check(d_over <= 0.005 * demand,
+          f"steady parity: overflow differs by {d_over}")
+    return out
+
+
+def steady_row_lse(dev, card: str) -> dict:
+    """Kernel 4 at the steady cell's shape, bf16 [1024, 1024] (the dirty
+    rows padded to 1024): against its plain version, timed beside its
+    bound and torch.logsumexp over a materialized f32 z."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    op = lse_operands(STEADY_LSE_SHAPE, gen)
+    case = check_lse_kernels(op, "steady")
+    timed = lse_times(op, case["errors"], card)["row_lse_partial"]
+    # At this size a call's host time can exceed its device time.
+    timed["kernel_split_ms"] = kernel_split_ms(
+        lse_calls(op)["row_lse_partial"][0], KERNEL_REPS)
+    return timed
+
+
+def phase_steady(dev, card: str) -> dict:
+    """The steady state at the main fleet (bench.py's
+    _measure_solver_paths, run_path("1", 0.05) and run_path("1", 0.0)):
+    model-only churn of 1% of models a cycle, refreshed incrementally,
+    first with the dirty-row re-solve allowed, then with full warm sparse
+    solves on delta snapshots."""
+    fleet = steady_records(*MAIN_FLEET)
+    models, instances, rpm, _ = fleet
+    demand = demand_of(snapshot_columns(models, instances, rpm))
+    incr = steady_run(dev, fleet, 0.05, "steady", demand)
+    s_incr = incr["summary"]
+    check(s_incr["incremental_cycles"] >= STEADY_MIN_INCREMENTAL,
+          f"steady: {s_incr['incremental_cycles']} of {STEADY_CYCLES} "
+          f"cycles took the incremental path ({s_incr['paths']})")
+    repeatable = check_incremental_repeatable(dev, incr["strategy"], fleet)
+    stages = steady_stages(dev, incr["strategy"], fleet)
+    full = steady_run(dev, fleet, 0.0, "steady_full_warm", demand)
+    result = {"phase": "steady", "card": card, "models": MAIN_FLEET[0],
+              "instances": MAIN_FLEET[1], "padded": list(TIER),
+              "churn_per_cycle": MAIN_FLEET[0] // 100,
+              "incremental": s_incr, "full_warm": full["summary"],
+              "repeatable": repeatable, **stages,
+              "parity": steady_parity(dev),
+              "row_lse_at_steady_shape": steady_row_lse(dev, card)}
+    emit(result)
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -1229,6 +1594,7 @@ def main() -> int:
         phase_profile(dev, cols, "dense_profile")
     phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
     dense_wide_launches = phase_dense_wide(dev)
+    steady = phase_steady(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -1247,10 +1613,30 @@ def main() -> int:
                                   {"implied_load": ("main", MAIN_SOLVES)})
     load_entries[0]["dense_main_launches"] = (
         dense_run["launches"]["implied_load"])
+    # The steady cell's incremental refreshes run kernel 4 (the dirty
+    # rows' row potential) and the implied load once each.
+    per_refresh = steady["incremental"]["launches_per_incremental_refresh"]
+    lse_entries = kernel_entries(lse_kernels, "lse", lse_launches, lse_cells)
+    steady_lse = steady["row_lse_at_steady_shape"]
+    for entry in lse_entries:
+        if entry["name"] == "row_lse_partial":
+            entry.update({
+                "steady_launches_per_refresh": per_refresh["row_lse_partial"],
+                "steady_shape": steady_lse["shape"],
+                "steady_ms": steady_lse["ms"],
+                "steady_plain_ms": steady_lse["plain_ms"],
+                "steady_bound_ms": steady_lse["bound_ms"],
+                "steady_bound_by": steady_lse["bound_by"],
+                "steady_library_ms": steady_lse["library_ms"],
+                "steady_max_abs_err": steady_lse["max_abs_err"],
+                "steady_kernel_split_ms": steady_lse["kernel_split_ms"],
+            })
+    load_entries[0]["steady_launches_per_refresh"] = (
+        per_refresh["implied_load"])
     emit({"kernels": (
         kernel_entries(kernels, "masked_sparse", sparse_launches,
                        sparse_cells)
-        + kernel_entries(lse_kernels, "lse", lse_launches, lse_cells)
+        + lse_entries
         + load_entries
     )})
     emit({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Port of ``modelmesh_tpu/ops/costs.py``: the reference's placement
 preferences (ModelMesh.java:4646 PLACEMENT_ORDER plus the cache-miss LB
 walk) as terms of a dense ``[num_models, num_instances]`` cost matrix.
-Intermediates are f32; the output is bf16 by default.
+Intermediates are f32; the output is bf16 by default. ``assemble_cost_rows``
+is the same cost for a subset of rows (the incremental re-solve's).
 """
 
 from __future__ import annotations
@@ -121,5 +122,58 @@ def assemble_cost(
         + w.zone_spread * crowding
         + w.preference * (1.0 - problem.preferred.to(torch.float32))
         + INFEASIBLE * (1.0 - problem.feasible.to(torch.float32))
+    )
+    return cost.to(dtype)
+
+
+def assemble_cost_rows(
+    problem: PlacementProblem,
+    rows: torch.Tensor,
+    weights: CostWeights = CostWeights(),
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """``assemble_cost(...)[rows]`` without the full [N, M] result: the
+    incremental dirty-row re-solve's assembly (``ops/sparse.py``).
+
+    Every normalization statistic (rate, busyness and age norms, the
+    per-column loaded mass) is taken over the FULL problem, as
+    ``assemble_cost`` takes it, so a dirty row prices against the cost
+    surface of the base solve whichever other rows are dirty. The
+    per-element arithmetic is ``assemble_cost``'s, so the rows are equal
+    to its rows exactly. ``rows`` (integer, [D]) must be in range:
+    callers clamp padded sentinels first."""
+    w = weights
+    loaded_mass = problem.sizes @ problem.loaded.to(torch.float32)  # [M]
+    used_frac = torch.clamp(
+        (problem.reserved + loaded_mass)
+        / torch.clamp_min(problem.capacity, 1.0),
+        0.0, 1.5,
+    )
+    busy = _minmax_norm(problem.busyness)
+    age = _minmax_norm(problem.lru_age)
+    rows = rows.long()
+    rate = _minmax_norm(problem.rates)[rows]                      # [D]
+
+    loaded_d = problem.loaded[rows].to(torch.float32)             # [D, M]
+    in_range = (problem.zone >= 0) & (problem.zone < w.num_zones)
+    zone_ix = problem.zone.long().clamp(0, w.num_zones - 1)
+    zone_onehot = (
+        torch.nn.functional.one_hot(zone_ix, w.num_zones).to(torch.float32)
+        * in_range[:, None]
+    )  # [M, Z]
+    copies_per_zone = loaded_d @ zone_onehot                      # [D, Z]
+    denom = torch.clamp_min(copies_per_zone.sum(dim=1, keepdim=True), 1.0)
+    crowding = torch.where(
+        in_range[None, :], (copies_per_zone / denom)[:, zone_ix], 0.0
+    )  # [D, M]
+
+    per_instance = w.utilization * used_frac - w.lru_age * age  # [M]
+    cost = (
+        w.move * (1.0 - loaded_d)
+        + per_instance[None, :]
+        + w.balance * rate[:, None] * busy[None, :]
+        + w.zone_spread * crowding
+        + w.preference * (1.0 - problem.preferred[rows].to(torch.float32))
+        + INFEASIBLE * (1.0 - problem.feasible[rows].to(torch.float32))
     )
     return cost.to(dtype)

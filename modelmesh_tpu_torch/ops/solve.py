@@ -4,7 +4,8 @@ Port of ``modelmesh_tpu/ops/solve.py``. A config with ``0 < topk < M``
 runs the sparse top-K pipeline (``ops/sparse.py``); any other runs the
 dense tier: cost -> full-width Sinkhorn (the LSE kernels) -> plan logits
 -> dense auction. The solve runs on the device its problem's tensors are
-on.
+on. ``solve_placement_incremental`` re-selects a few rows against a
+previous solve's frozen column state.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from modelmesh_tpu_torch.ops.auction import (
     check_auction_config,
 )
 from modelmesh_tpu_torch.ops.sinkhorn import plan_logits, sinkhorn
-from modelmesh_tpu_torch.ops.sparse import solve_sparse
+from modelmesh_tpu_torch.ops.sparse import resolve_dirty_rows, solve_sparse
 
 
 class SolveConfig(NamedTuple):
@@ -130,4 +131,27 @@ def _solve_dense(problem, config: SolveConfig, seed: int, init) -> Placement:
         overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,
         prices=res.prices, sinkhorn_iters_run=sk.iters_run,
         auction_iters_run=res.iters_run,
+    )
+
+
+def solve_placement_incremental(
+    problem: costs_mod.PlacementProblem,
+    config: SolveConfig,
+    seed: int,
+    dirty_rows: torch.Tensor,     # i64[D] row ids, padded with >= N sentinels
+    base_indices: torch.Tensor,   # i64[N, MAX_COPIES] previous assignment
+    base_valid: torch.Tensor,     # bool[N, MAX_COPIES]
+    g0: torch.Tensor,             # f32[M] frozen column potentials
+    price0: torch.Tensor,         # f32[M] frozen congestion prices
+    base_row_err: torch.Tensor,   # f32[] frozen Sinkhorn diagnostic
+) -> Placement:
+    """Incremental dirty-row re-solve (``ops/sparse.py``): only the rows
+    in ``dirty_rows`` are re-selected, against the FROZEN column
+    potentials and prices of the base solve, and merged into the base
+    assignment. ``seed`` must be the base solve's, so the positional
+    noise draw matches; the dispatch layer enforces that, and the
+    dirty-fraction and overflow fallback gates."""
+    return resolve_dirty_rows(
+        problem, config, seed, dirty_rows, base_indices, base_valid,
+        g0, price0, base_row_err,
     )

@@ -13,6 +13,9 @@ Port of ``modelmesh_tpu/ops/sparse.py`` (the design notes are there):
    scaled kernel is materialized.
 3. ``sparse_auction``: price repair over the fixed gathered candidates.
 
+``resolve_dirty_rows`` is the incremental re-solve between full solves:
+a few rows re-selected against the frozen column state of the last one.
+
 Rounding noise is the positional hash-Gumbel draw, a pure function of
 (row, col, seed), so the gathered and full-width evaluations agree.
 """
@@ -25,19 +28,24 @@ import torch
 
 from modelmesh_tpu_torch import device as device_mod
 from modelmesh_tpu_torch.ops import costs as costs_mod
-from modelmesh_tpu_torch.ops import cuda_sparse
+from modelmesh_tpu_torch.ops import cuda_lse, cuda_sparse
 from modelmesh_tpu_torch.ops.auction import (
     MAX_COPIES,
     _NEG_INF,
     AuctionResult,
     _implied_load,
+    _select,
     check_rounding_config,
     hash_gumbel_at,
     price_repair,
     resolve_load_impl,
     select_from_candidates,
 )
-from modelmesh_tpu_torch.ops.sinkhorn import SinkhornResult, run_sinkhorn
+from modelmesh_tpu_torch.ops.sinkhorn import (
+    SinkhornResult,
+    resolve_lse_impl,
+    run_sinkhorn,
+)
 
 # Gumbel scale for the candidate-selection draw (cost units), and the salt
 # that makes it independent of the rounding noise at the same counter.
@@ -285,4 +293,87 @@ def solve_sparse(problem, config, seed: int, init):
         overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,
         prices=res.prices, sinkhorn_iters_run=sk.iters_run,
         auction_iters_run=res.iters_run,
+    )
+
+
+def _merge_rows(base: torch.Tensor, rows: torch.Tensor,
+                new: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``new[i]`` written at row ``rows[i]``; rows at or past
+    the end are dropped. ``index_put_`` has no drop mode, so the scatter
+    goes into a copy one row taller, where every out-of-range row lands,
+    and that row is cut off (no host sync to filter them first)."""
+    n = base.shape[0]
+    buf = torch.cat([base, base[:1]])
+    buf[torch.clamp_max(rows, n)] = new.to(base.dtype)
+    return buf[:n]
+
+
+def resolve_dirty_rows(
+    problem, config, seed, dirty_rows, base_indices, base_valid,
+    g0, price0, base_row_err,
+):
+    """Incremental re-solve: new assignments for the dirty rows only,
+    merged into the previous solve's placement.
+
+    The column state (Sinkhorn potentials ``g0``, congestion prices
+    ``price0``) is FROZEN from the base solve; the dispatch layer falls
+    back to a full solve when the dirty fraction or the merged overflow
+    says it moved. Each dirty row gets the exact row potential against
+    the frozen g, ``f = eps * (log a - row_lse(C_d, g))`` (kernel 4,
+    ``cuda_lse.row_lse``, on CUDA tensors: one [D, M] pass), plan logits
+    quantized to ``config.dtype``, the base solve's positional noise draw
+    (``seed`` must be its seed), and an exact full-width selection at the
+    frozen prices. Load and overflow are recomputed over the whole merged
+    assignment (the implied load of ``config.load_impl``: the fixed-order
+    kernel on the card).
+
+    ``dirty_rows`` (integer [D]) is padded with sentinels >= the row
+    count: they gather a clamped row, ``copies = 0`` voids their
+    selection and the merge drops them. ``base_row_err`` rides through.
+    """
+    from modelmesh_tpu_torch.ops.solve import Placement
+
+    check_sparse_config(config)
+    dev = problem.sizes.device
+    resolve_lse_impl(config.lse_impl, dev)
+    seed = int(seed) & 0xFFFFFFFF
+    n, m = problem.num_models, problem.num_instances
+    dirty_rows = dirty_rows.long()
+    rows = torch.clamp(dirty_rows, 0, n - 1)
+    pad = dirty_rows >= n
+    C_d = costs_mod.assemble_cost_rows(
+        problem, rows, weights=config.weights, dtype=config.dtype
+    )
+    Cf = C_d.to(torch.float32)
+    copies_d = torch.where(
+        pad, 0, torch.clamp_max(problem.copies[rows], MAX_COPIES)
+    )
+    row_mass_d = problem.sizes[rows] * copies_d.to(torch.float32)
+    g = torch.clamp_max(g0.to(torch.float32), 0.0)
+    prices = torch.clamp_min(price0.to(torch.float32), 0.0)
+    lse = cuda_lse.row_lse(C_d, g, config.eps)
+    f_d = config.eps * (torch.log(torch.clamp_min(row_mass_d, _TINY)) - lse)
+    logits_d = ((f_d[:, None] + g[None, :] - Cf) / config.eps).to(
+        config.dtype
+    )
+    scores = logits_d.to(torch.float32)
+    if config.tau > 0:
+        cols = torch.arange(m, device=dev)
+        scores = scores + config.tau * hash_gumbel_at(
+            rows[:, None], cols[None, :], seed
+        )
+    scores = torch.where(problem.feasible[rows], scores, _NEG_INF)
+    idx_d, valid_d = _select(scores - prices[None, :], copies_d)
+    indices = _merge_rows(base_indices, dirty_rows, idx_d)
+    valid = _merge_rows(base_valid, dirty_rows, valid_d)
+    load = _implied_load(
+        indices, valid, problem.sizes, m,
+        resolve_load_impl(config.load_impl, dev),
+    )
+    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+    overflow = torch.clamp_min(load - torch.clamp_min(free, 1e-6), 0.0).sum()
+    return Placement(
+        indices=indices, valid=valid, load=load, overflow=overflow,
+        row_err=base_row_err, f=None, g=g0, prices=price0,
+        sinkhorn_iters_run=0, auction_iters_run=0,
     )

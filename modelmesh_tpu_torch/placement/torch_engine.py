@@ -1,23 +1,33 @@
-"""Global placement solve dispatch: host snapshot -> device solve -> plan.
+"""Global placement: host snapshot -> device solve -> plan, and the
+strategy that serves plans.
 
-Port of the solver half of ``modelmesh_tpu/placement/jax_engine.py``:
-``snapshot_columns`` builds a columnar host snapshot of cluster state,
-``dispatch_solve`` expands it into a ``PlacementProblem`` on the device and
-runs the solve (sparse top-K or the dense tier, by the reference's
-dispatch rule), and ``finalize_plan`` reads the result back in one
-batched readback and packs it into a ``GlobalPlan``. Plans are advisory:
-the serving layer's local guards stay authoritative.
+Port of ``modelmesh_tpu/placement/jax_engine.py``: ``snapshot_columns``
+builds a columnar host snapshot of cluster state and ``patch_columns``
+patches it for the records marked dirty (the delta snapshot);
+``dispatch_solve`` expands it into a ``PlacementProblem`` on the device
+and runs the solve (sparse top-K or the dense tier, by the reference's
+dispatch rule; or, given the last full solve's ``SolveBase`` and dirty
+row ids, the incremental dirty-row re-solve); ``finalize_plan`` reads the
+result back in one batched readback and packs it into a ``GlobalPlan``.
+``TorchPlacementStrategy`` routes each refresh between those paths and
+answers placement decisions from the plan, with a fallback strategy
+behind it. Plans are advisory: the serving layer's local guards stay
+authoritative.
 
 Differences from the reference: the solve's convergence gates run on the
 host, so ``dispatch_solve`` returns after the solve's last gate decision
-(only the tail of the solve is still in flight); every host sync on the
-path is counted (``device.host_syncs``) and reported per solve in
-``plan.stats["host_syncs"]``. Meshes, buffer donation and the
-incremental dirty-row re-solve are not ported yet.
+(only the tail of the solve is still in flight; the incremental path has
+no gates); every host sync on the path is counted (``device.host_syncs``)
+and reported per solve in ``plan.stats["host_syncs"]``. Meshes and buffer
+donation are not ported and raise; the device ``carry`` is accepted.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import logging
+import threading
 import time
 from collections.abc import Mapping
 from typing import Callable, NamedTuple, Optional, Sequence, Union
@@ -28,10 +38,23 @@ import torch
 from modelmesh_tpu_torch import device as device_mod
 from modelmesh_tpu_torch.ops.costs import PlacementProblem
 from modelmesh_tpu_torch.ops.sinkhorn import resolve_lse_impl
-from modelmesh_tpu_torch.ops.solve import SolveConfig, SolveInit, solve_placement
+from modelmesh_tpu_torch.ops.solve import (
+    SolveConfig,
+    SolveInit,
+    solve_placement,
+    solve_placement_incremental,
+)
 from modelmesh_tpu_torch.ops.sparse import resolve_sparse_impl
+from modelmesh_tpu_torch.placement.strategy import (
+    LOAD_HERE,
+    ClusterView,
+    PlacementRequest,
+    PlacementStrategy,
+)
 from modelmesh_tpu_torch.records import InstanceRecord, ModelRecord, now_ms
 from modelmesh_tpu_torch.utils import envs
+
+log = logging.getLogger(__name__)
 
 RpmSource = Union[Callable[[str], int], Mapping[str, int]]
 
@@ -58,6 +81,35 @@ class ProblemColumns(NamedTuple):
     busy: np.ndarray        # f32[M]
     zone: np.ndarray        # i32[M]
     placeable: np.ndarray   # bool[M] not shutting down / not disabled
+
+
+class SnapshotCache:
+    """What ``patch_columns`` needs to patch the last snapshot instead of
+    rebuilding it: the raw per-record inputs the derived columns came
+    from (last_used, used, lru_ts; rpm is re-read on every patch) and the
+    id -> position maps, so a steady refresh touches only the dirty
+    records. ``patch_columns`` copies an array before changing it, so
+    columns handed out by earlier snapshots stay frozen."""
+
+    __slots__ = (
+        "cols", "last_used", "used", "lru_ts", "model_pos",
+        "inst_pos", "zone_id", "tmap", "default_size_units", "max_copies",
+        "constraints",
+    )
+
+    def __init__(self, cols, last_used, used, lru_ts, zone_id, tmap,
+                 default_size_units, max_copies, constraints):
+        self.cols = cols
+        self.last_used = last_used
+        self.used = used
+        self.lru_ts = lru_ts
+        self.model_pos = {mid: i for i, mid in enumerate(cols.model_ids)}
+        self.inst_pos = {iid: j for j, iid in enumerate(cols.instance_ids)}
+        self.zone_id = zone_id
+        self.tmap = tmap
+        self.constraints = constraints
+        self.default_size_units = default_size_units
+        self.max_copies = max_copies
 
 
 def _rpm_column(rpm_fn: Optional[RpmSource], model_ids, n: int) -> np.ndarray:
@@ -92,10 +144,13 @@ def snapshot_columns(
     default_size_units: int = 128,
     max_copies: int = 8,
     constraints=None,
-) -> ProblemColumns:
+    return_cache: bool = False,
+):
     """Vectorized host snapshot: one C-speed pass per column.
     ``constraints`` (duck-typed ``is_candidate``/``is_preferred``) builds
-    the per-type masks; without it every instance is a candidate."""
+    the per-type masks; without it every instance is a candidate. With
+    ``return_cache`` the pair ``(cols, SnapshotCache)`` comes back, for
+    later ``patch_columns`` calls."""
     model_ids = [mid for mid, _ in models]
     instance_ids = [iid for iid, _ in instances]
     n, m = len(model_ids), len(instance_ids)
@@ -155,11 +210,158 @@ def snapshot_columns(
     placeable = np.fromiter(
         (not rec.shutting_down and not rec.disabled for rec in irecs), bool, m
     )
-    return ProblemColumns(
+    cols = ProblemColumns(
         model_ids, instance_ids, sizes, copies, rates, loaded_rows,
         loaded_cols, type_idx, req_masks, pref_masks, capacity, reserved,
         lru_age, busy, zone, placeable,
     )
+    if not return_cache:
+        return cols
+    return cols, SnapshotCache(
+        cols, last_used, used, lru_ts, zone_id, tmap,
+        default_size_units, max_copies, constraints,
+    )
+
+
+# Consecutive delta refreshes before the strategy forces a full rebuild:
+# bounds how long the frozen noise epoch can pin an unlucky draw, and how
+# long an unmarked change can stay stale, under perpetual small churn.
+MAX_DELTA_STREAK = 64
+
+# Above this dirty fraction a patch stops paying: the per-record work
+# approaches the full rebuild's.
+MAX_DIRTY_FRAC = 0.25
+
+
+def patch_columns(
+    cache: SnapshotCache,
+    models: Sequence[tuple[str, ModelRecord]],
+    instances: Sequence[tuple[str, InstanceRecord]],
+    rpm_fn: Optional[RpmSource] = None,
+    dirty_models: Optional[set] = None,
+    dirty_instances: Optional[set] = None,
+    constraints=None,
+    max_dirty_frac: float = MAX_DIRTY_FRAC,
+):
+    """Delta snapshot: patch the cached ``ProblemColumns`` for the dirty
+    records only. Returns the new columns (and updates ``cache`` in
+    place), or ``None`` when the caller must rebuild with
+    ``snapshot_columns``:
+
+    - the model or instance list changed length;
+    - a dirty id is unknown or no longer at its cached position;
+    - a dirty record brings a new model type or zone;
+    - ``constraints`` is not the object the snapshot was built under;
+    - the dirty fraction exceeds ``max_dirty_frac``.
+
+    Callers mark every changed record dirty; an unmarked change stays
+    stale until the next rebuild. Columns that move without a record
+    change are recomputed for every record on each patch: rpm re-read
+    from ``rpm_fn``, and the time-derived rates, reserved and lru_age."""
+    cols = cache.cols
+    n, m = len(cols.model_ids), len(cols.instance_ids)
+    if len(models) != n or len(instances) != m:
+        return None
+    if constraints is not cache.constraints:
+        return None
+    dm = dirty_models or set()
+    di = dirty_instances or set()
+    if (len(dm) + len(di)) > max_dirty_frac * (n + m):
+        return None
+    now = now_ms()
+
+    sizes, copies, type_idx = cols.sizes, cols.copies, cols.type_idx
+    last_used = cache.last_used
+    rpm = _rpm_column(rpm_fn, cols.model_ids, n)
+    loaded_rows, loaded_cols = cols.loaded_rows, cols.loaded_cols
+    if dm:
+        rows_i = []
+        for mid in dm:
+            i = cache.model_pos.get(mid)
+            if i is None or models[i][0] != mid:
+                return None
+            if models[i][1].model_type not in cache.tmap:
+                return None
+            rows_i.append(i)
+        sizes, copies, type_idx = (
+            np.array(sizes), np.array(copies), np.array(type_idx)
+        )
+        last_used = np.array(last_used)
+        for i in rows_i:
+            mr = models[i][1]
+            sizes[i] = mr.size_units or cache.default_size_units
+            copies[i] = min(max(mr.copy_count, 1), cache.max_copies)
+            last_used[i] = mr.last_used
+            type_idx[i] = cache.tmap[mr.model_type]
+        # COO patch: drop the dirty rows' pairs, append their fresh ones.
+        keep = ~np.isin(loaded_rows, np.asarray(rows_i, np.int32))
+        new_pairs = [
+            (i, cache.inst_pos[iid])
+            for i in rows_i
+            for iid in models[i][1].instance_ids
+            if iid in cache.inst_pos
+        ]
+        loaded_rows = np.concatenate([
+            loaded_rows[keep],
+            np.fromiter((p[0] for p in new_pairs), np.int32, len(new_pairs)),
+        ])
+        loaded_cols = np.concatenate([
+            loaded_cols[keep],
+            np.fromiter((p[1] for p in new_pairs), np.int32, len(new_pairs)),
+        ])
+
+    capacity, busy, zone, placeable = (
+        cols.capacity, cols.busy, cols.zone, cols.placeable
+    )
+    used, lru_ts = cache.used, cache.lru_ts
+    req_masks, pref_masks = cols.req_masks, cols.pref_masks
+    if di:
+        cols_j = []
+        for iid in di:
+            j = cache.inst_pos.get(iid)
+            if j is None or instances[j][0] != iid:
+                return None
+            if instances[j][1].zone not in cache.zone_id:
+                return None
+            cols_j.append(j)
+        capacity, busy, zone, placeable = (
+            np.array(capacity), np.array(busy), np.array(zone),
+            np.array(placeable),
+        )
+        used, lru_ts = np.array(used), np.array(lru_ts)
+        patch_masks = constraints is not None and cache.tmap
+        if patch_masks:
+            req_masks = np.array(req_masks)
+            pref_masks = np.array(pref_masks)
+        for j in cols_j:
+            rec = instances[j][1]
+            capacity[j] = max(rec.capacity_units, 1.0)
+            used[j] = rec.used_units
+            lru_ts[j] = rec.lru_ts
+            busy[j] = rec.req_per_minute
+            zone[j] = cache.zone_id[rec.zone]
+            placeable[j] = not rec.shutting_down and not rec.disabled
+            if patch_masks:
+                for mtype, ti in cache.tmap.items():
+                    req_masks[ti, j] = constraints.is_candidate(
+                        mtype, rec.labels
+                    )
+                    pref_masks[ti, j] = constraints.is_preferred(
+                        mtype, rec.labels
+                    )
+
+    rates, reserved, lru_age = _derived_columns(
+        rpm, last_used, sizes, loaded_rows, loaded_cols, used, lru_ts, now, m
+    )
+    new_cols = ProblemColumns(
+        cols.model_ids, cols.instance_ids, sizes, copies, rates,
+        loaded_rows, loaded_cols, type_idx, req_masks, pref_masks,
+        capacity, reserved, lru_age, busy, zone, placeable,
+    )
+    cache.cols = new_cols
+    cache.last_used = last_used
+    cache.used, cache.lru_ts = used, lru_ts
+    return new_cols
 
 
 def _bucket(x: int, floor: int = 256) -> int:
@@ -296,6 +498,37 @@ def _resolve_sparse_config(config, m_pad: int, max_copies: int):
     return cfg._replace(**overrides), True
 
 
+# Quality gate of the incremental path: a merged re-solve whose overflow
+# drifts more than this fraction of demand past the base full solve's own
+# overflow falls back to a full solve.
+INCREMENTAL_OVERFLOW_FRAC = 0.005
+
+# Traffic drift that re-selects a CLEAN row on the incremental path: a row
+# whose rate moved by more than this fraction of the base solve's hottest
+# rate joins the dirty set.
+RATE_DRIFT_FRAC = 0.2
+
+
+class SolveBase(NamedTuple):
+    """Frozen state of the last full solve: the incremental path's merge
+    target (device tensors at the padded shapes, on the solve's device).
+    ``seed`` is the noise epoch it was solved under: the carried prices,
+    potentials and the draw are a matched triple."""
+
+    indices: torch.Tensor   # i64[n_pad, MAX_COPIES]
+    valid: torch.Tensor     # bool[n_pad, MAX_COPIES]
+    g: torch.Tensor         # f32[m_pad] frozen column potentials
+    prices: torch.Tensor    # f32[m_pad] frozen congestion prices
+    row_err: torch.Tensor   # f32[] frozen Sinkhorn diagnostic
+    seed: int
+    # The full solve's overflow (host float): the quality gate bounds the
+    # drift past it. Not advanced by increments.
+    overflow: float = 0.0
+    # f32[n] host copy of the rates the full solve ranked under, for the
+    # rate-drift re-selection; frozen like the overflow.
+    rates: Optional[np.ndarray] = None
+
+
 def solve_config_from_env() -> SolveConfig:
     """SolveConfig overridden by the MM_SOLVER_* operator knobs."""
     base = SolveConfig()
@@ -405,6 +638,11 @@ class GlobalPlan:
         end = start + int(counts[row])
         return [inst_ids[j] for j in flat[start:end].tolist()]
 
+    def age_ms(self) -> int:
+        """Milliseconds since this plan was adopted locally (plans expire
+        on local clocks)."""
+        return now_ms() - self.adopted_at_ms
+
     def to_bytes(self) -> bytes:
         import json
         import zlib
@@ -512,10 +750,12 @@ class PendingSolve(NamedTuple):
     path: str = "sparse"
     topk: int = 0
     # The path's kernel knob and the backend that ran (cuda | plain):
-    # "sparse_impl" on a sparse solve, "lse_impl" on a dense one.
+    # "sparse_impl" on a sparse solve, "lse_impl" on a dense or an
+    # incremental one (the row LSE).
     impl_knob: str = "sparse_impl"
     impl: str = "cuda"
     syncs_at_start: int = 0     # device.host_syncs when dispatch began
+    dirty_rows: Optional[int] = None  # rows re-solved (incremental only)
 
 
 def dispatch_solve(
@@ -525,10 +765,11 @@ def dispatch_solve(
     warm_g: Optional[Mapping[str, float]] = None,
     warm_price: Optional[Mapping[str, float]] = None,
     config=None,
+    carry=None,
     donate: bool = False,
     t_start: Optional[float] = None,
     t_snapshot: Optional[float] = None,
-    base=None,
+    base: Optional[SolveBase] = None,
     dirty_rows=None,
     *,
     device=None,
@@ -537,48 +778,88 @@ def dispatch_solve(
     the dense tier for small fleets and the MM_SOLVER_SPARSE=0 pin
     (``_resolve_sparse_config``).
 
+    With ``base`` (the last full solve's ``SolveBase``) and ``dirty_rows``
+    (row ids into ``cols.model_ids``) it runs the incremental dirty-row
+    re-solve instead: only those rows are re-selected against the frozen
+    column state and merged into the base assignment
+    (``solve_placement_incremental``). Callers gate on the dirty fraction
+    and the noise epoch (``TorchPlacementStrategy``) and check the merged
+    overflow after finalizing.
+
     ``device=None`` means the first CUDA device, and raises without one
-    (``device.resolve_device``). Warm starts come from the
-    ``warm_g``/``warm_price`` per-instance-id dicts of the previous plan
-    (instances unknown to them start cold). ``mesh``, ``donate`` and the
-    incremental ``base``/``dirty_rows`` are not ported yet and raise, as
-    does the dense tier's threefry noise."""
+    (``device.resolve_device``). Warm starts, in order of preference:
+    ``carry`` as (g0, price0) tensors already padded and column-aligned on
+    the device; else the ``warm_g``/``warm_price`` per-instance-id dicts
+    of the previous plan (instances unknown to them start cold); else
+    zeros. ``mesh`` and ``donate`` are not ported and raise, as does the
+    threefry noise at tau > 0."""
     if mesh is not None:
         raise NotImplementedError("sharded solve: ROADMAP queue 1")
     if donate:
         raise NotImplementedError("buffer donation has no PyTorch port")
-    if base is not None or dirty_rows is not None:
-        raise NotImplementedError("incremental re-solve: ROADMAP queue 1")
     dev = device_mod.resolve_device(device)
     syncs0 = device_mod.host_syncs
     t_start = time.perf_counter() if t_start is None else t_start
     t_snapshot = time.perf_counter() if t_snapshot is None else t_snapshot
+    n_pad = _bucket(len(cols.model_ids))
     m_pad = _bucket(len(cols.instance_ids), 64)
     max_copies = int(cols.copies.max()) if len(cols.copies) else 1
     config, sparse = _resolve_sparse_config(config, m_pad, max_copies)
     cfg = SolveConfig() if config is None else config
+
+    if base is not None and dirty_rows is not None:
+        if base.indices.shape[0] != n_pad or base.g.shape[0] != m_pad:
+            raise ValueError(
+                "SolveBase shapes do not match the padded problem "
+                "(stale base after a fleet resize?)"
+            )
+        impl = resolve_lse_impl(cfg.lse_impl, dev)
+        problem = _expand_problem_device(cols, dev)
+        d = np.asarray(sorted(int(r) for r in dirty_rows), np.int64)
+        padded = np.full(_bucket(max(len(d), 1), 64), n_pad, np.int64)
+        padded[: len(d)] = d
+        sol = solve_placement_incremental(
+            problem, cfg, seed, torch.from_numpy(padded).to(dev),
+            base.indices, base.valid, base.g, base.prices, base.row_err,
+        )
+        return PendingSolve(
+            cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
+            warm=True, path="incremental", topk=cfg.topk,
+            impl_knob="lse_impl", impl=impl, syncs_at_start=syncs0,
+            dirty_rows=len(d),
+        )
+
     if sparse:
         impl_knob, impl = "sparse_impl", resolve_sparse_impl(
             cfg.sparse_impl, dev)
     else:
         impl_knob, impl = "lse_impl", resolve_lse_impl(cfg.lse_impl, dev)
-
-    g0 = np.zeros(m_pad, np.float32)
-    price0 = np.zeros(m_pad, np.float32)
-    if warm_g:
-        for j, iid in enumerate(cols.instance_ids):
-            g0[j] = warm_g.get(iid, 0.0)
-    if warm_price:
-        for j, iid in enumerate(cols.instance_ids):
-            price0[j] = warm_price.get(iid, 0.0)
+    if carry is not None:
+        g0_t, price0_t = carry
+        if g0_t.shape[0] != m_pad or price0_t.shape[0] != m_pad:
+            raise ValueError(
+                f"device carry shape {g0_t.shape[0]} != padded columns "
+                f"{m_pad}"
+            )
+        init = SolveInit(g0=g0_t.to(dev), price0=price0_t.to(dev))
+        warm = True
+    else:
+        g0 = np.zeros(m_pad, np.float32)
+        price0 = np.zeros(m_pad, np.float32)
+        if warm_g:
+            for j, iid in enumerate(cols.instance_ids):
+                g0[j] = warm_g.get(iid, 0.0)
+        if warm_price:
+            for j, iid in enumerate(cols.instance_ids):
+                price0[j] = warm_price.get(iid, 0.0)
+        init = SolveInit(g0=torch.from_numpy(g0).to(dev),
+                         price0=torch.from_numpy(price0).to(dev))
+        warm = bool(warm_g)
     problem = _expand_problem_device(cols, dev)
-    init = SolveInit(
-        g0=torch.from_numpy(g0).to(dev), price0=torch.from_numpy(price0).to(dev)
-    )
     sol = solve_placement(problem, config=cfg, seed=seed, init=init)
     return PendingSolve(
         cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
-        warm=bool(warm_g),
+        warm=warm,
         path="sparse" if sparse else "dense",
         topk=cfg.topk if sparse else 0,
         impl_knob=impl_knob, impl=impl,
@@ -649,6 +930,8 @@ def finalize_plan(
     }
     if pending.topk:
         plan.stats["topk"] = pending.topk
+    if pending.dirty_rows is not None:
+        plan.stats["dirty_rows"] = pending.dirty_rows
     if fetch_carries:
         m = len(cols.instance_ids)
         g_arr = scalars[2:2 + m_pad][:m]
@@ -689,3 +972,394 @@ def solve_plan(
         config=config, t_start=t0, t_snapshot=t1, device=device,
     )
     return finalize_plan(pending)
+
+
+class TorchPlacementStrategy(PlacementStrategy):
+    """Plan-serving strategy with a fallback behind it: the port of
+    ``JaxPlacementStrategy``.
+
+    ``refresh(models, instances, rpm_fn, incremental=...)`` solves a plan
+    (the leader calls it periodically and publishes the result); decisions
+    read the latest plan without a lock and fall back to ``fallback`` on
+    any miss (model not in the plan, planned instances all excluded, plan
+    older than ``plan_ttl_ms``). An incremental refresh patches the cached
+    snapshot for the records marked dirty (``mark_dirty``) and, for small
+    model-only churn under a matching noise epoch, re-solves only the
+    dirty rows against the last full solve's frozen column state
+    (``SolveBase``); otherwise it runs a full warm solve.
+
+    Differences from the reference:
+
+    - ``device=None`` means ``cuda:0`` and raises without a CUDA device
+      (``device.resolve_device``); ``device="cpu"`` runs the plain
+      versions.
+    - ``mesh`` must be ``None``: the sharded solve is not ported.
+    - The locks are plain ``threading.Lock``s.
+    - ``fallback`` is required: the reference's default greedy strategy
+      lives in the serving layer, which the port does not import, so
+      whoever wires the port into serving hands one in.
+    """
+
+    def __init__(
+        self,
+        plan_ttl_ms: int = 15 * 60_000,
+        fallback: Optional[PlacementStrategy] = None,
+        constraints=None,
+        mesh=None,
+        solve_config="env",
+        *,
+        device=None,
+    ):
+        if fallback is None:
+            raise TypeError(
+                "TorchPlacementStrategy needs a fallback strategy: the "
+                "reference's default (the greedy strategy) belongs to the "
+                "serving layer, which the port does not import"
+            )
+        if mesh is not None:
+            raise NotImplementedError("sharded solve: ROADMAP queue 1")
+        self.plan_ttl_ms = plan_ttl_ms
+        self.fallback = fallback
+        # Type constraints (duck-typed is_candidate/is_preferred) the
+        # solves honor.
+        self.constraints = constraints
+        self.device = device_mod.resolve_device(device)
+        # "env" -> MM_SOLVER_* knobs; None -> the defaults; or a config.
+        if solve_config == "env":
+            cfg = solve_config_from_env()
+            solve_config = None if cfg == SolveConfig() else cfg
+        self.solve_config = solve_config
+        self._plan: Optional[GlobalPlan] = None
+        # Plan generation (always increments) is separate from the noise
+        # seed: incremental refreshes freeze the noise epoch, and the seed
+        # rotates only on full rebuilds.
+        self._generation = 0
+        self._seed = 0
+        self._refresh_lock = threading.Lock()
+        self._warm_g: Optional[dict[str, float]] = None
+        self._warm_price: Optional[dict[str, float]] = None
+        # Delta-snapshot state: the cached columns and the dirty marks
+        # since the last refresh (id -> highest record version announced;
+        # 0 = unknown). _dirty_lock is separate, so event threads never
+        # wait behind a solve.
+        self._snap_cache: Optional[SnapshotCache] = None
+        self._dirty_lock = threading.Lock()
+        self._dirty_models: dict = {}
+        self._dirty_instances: dict = {}
+        # Consecutive delta refreshes since the last full rebuild.
+        self._delta_streak = 0
+        # The last full solve's frozen state: the incremental path's merge
+        # target. Dropped on a seed rotation, a fleet resize or a failed
+        # quality gate.
+        self._base: Optional[SolveBase] = None
+        # Dirty-row fraction ceiling of the incremental re-solve; 0 turns
+        # the path off.
+        self.incr_max_dirty_frac = envs.get_float(
+            "MM_SOLVER_INCREMENTAL_MAX_DIRTY_FRAC"
+        )
+
+    @property
+    def plan(self) -> Optional[GlobalPlan]:
+        return self._plan
+
+    def mark_dirty(
+        self, models: Sequence = (), instances: Sequence = ()
+    ) -> None:
+        """Record churned records for the next ``refresh(incremental=True)``.
+
+        Every model or instance whose record changed since the last
+        refresh must be marked, or the delta snapshot serves stale columns
+        for it until the next full rebuild. Entries are bare ids or
+        ``(id, record_version)`` pairs: a versioned mark whose version is
+        newer than the record the refresh patched from is re-queued
+        (``_requeue_stale_marks_locked``)."""
+        with self._dirty_lock:
+            for entry in models:
+                mid, ver = entry if isinstance(entry, tuple) else (entry, 0)
+                if ver >= self._dirty_models.get(mid, 0):
+                    self._dirty_models[mid] = ver
+            for entry in instances:
+                iid, ver = entry if isinstance(entry, tuple) else (entry, 0)
+                if ver >= self._dirty_instances.get(iid, 0):
+                    self._dirty_instances[iid] = ver
+
+    def _take_dirty(self) -> tuple[dict, dict]:
+        with self._dirty_lock:
+            dm, di = self._dirty_models, self._dirty_instances
+            self._dirty_models, self._dirty_instances = {}, {}
+            return dm, di
+
+    def _requeue_stale_marks_locked(self, dm, di, models, instances) -> None:
+        """Re-queue consumed marks whose record version is newer than the
+        record in the list just snapshotted: the event landed between the
+        caller's list read and ``_take_dirty``, so its change is not in
+        the columns yet."""
+        cache = self._snap_cache
+        if cache is None:
+            return
+        stale_m = [
+            (mid, ver) for mid, ver in dm.items()
+            if ver
+            and (i := cache.model_pos.get(mid)) is not None
+            and models[i][1].version < ver
+        ]
+        stale_i = [
+            (iid, ver) for iid, ver in di.items()
+            if ver
+            and (j := cache.inst_pos.get(iid)) is not None
+            and instances[j][1].version < ver
+        ]
+        if stale_m or stale_i:
+            self.mark_dirty(stale_m, stale_i)
+
+    def _build_cols_locked(self, models, instances, rpm_fn, incremental: bool):
+        """Delta-patch the cached snapshot when allowed, else rebuild it.
+        Returns (cols, was_delta, dirty_models, dirty_instances)."""
+        dm, di = self._take_dirty()
+        if (
+            incremental
+            and self._snap_cache is not None
+            and self._delta_streak < MAX_DELTA_STREAK
+        ):
+            cols = patch_columns(
+                self._snap_cache, models, instances, rpm_fn,
+                set(dm), set(di), constraints=self.constraints,
+            )
+            if cols is not None:
+                self._delta_streak += 1
+                self._requeue_stale_marks_locked(dm, di, models, instances)
+                return cols, True, dm, di
+        cols, self._snap_cache = snapshot_columns(
+            models, instances, rpm_fn, constraints=self.constraints,
+            return_cache=True,
+        )
+        self._delta_streak = 0
+        self._requeue_stale_marks_locked(dm, di, models, instances)
+        return cols, False, dm, di
+
+    def _epoch_carries_locked(self, delta: bool):
+        """Noise-epoch discipline: a delta refresh keeps the seed and may
+        warm-start prices; a full rebuild rotates the seed and drops the
+        price carry, which only means something under the draw it was
+        selected with. g is draw-independent and always carries. Returns
+        the (warm_g, warm_price) dicts to use."""
+        if not delta:
+            self._seed += 1
+            self._warm_price = None
+        return self._warm_g, self._warm_price
+
+    def _incremental_rows_locked(self, cols, delta, dm, di):
+        """Dirty row ids for an incremental re-solve, or None for a full
+        solve: after a full rebuild or without a base; when the base's
+        seed or padded shapes differ; when any instance is dirty (column
+        churn moves every row's costs); under threefry noise; and when the
+        dirty-model fraction exceeds ``incr_max_dirty_frac``. Clean rows
+        whose rate drifted past RATE_DRIFT_FRAC of the base's hottest rate
+        join the set first, and the ceiling applies to the joined set."""
+        base = self._base
+        if (
+            not delta or base is None or di or not dm
+            or self.incr_max_dirty_frac <= 0
+            or base.seed != self._seed
+        ):
+            return None
+        cfg = self.solve_config
+        if cfg is not None and cfg.tau > 0 and cfg.noise_impl != "hash":
+            return None
+        n = len(cols.model_ids)
+        if (
+            base.indices.shape[0] != _bucket(n)
+            or base.g.shape[0] != _bucket(len(cols.instance_ids), 64)
+        ):
+            return None
+        cache = self._snap_cache
+        rows = set()
+        for mid in dm:
+            i = None if cache is None else cache.model_pos.get(mid)
+            if i is None:
+                return None
+            rows.add(i)
+        if base.rates is not None and len(base.rates) >= n:
+            cur = np.asarray(cols.rates, np.float32)[:n]
+            scale = float(base.rates[:n].max()) if n else 0.0
+            if scale > 0.0:
+                drifted = np.nonzero(
+                    np.abs(cur - base.rates[:n]) > RATE_DRIFT_FRAC * scale
+                )[0]
+                rows.update(int(i) for i in drifted)
+        if len(rows) > self.incr_max_dirty_frac * n:
+            return None
+        return sorted(rows)
+
+    def _solve_locked(self, cols, delta, dm, di, t0):
+        """The incremental re-solve when the gates allow, with the
+        overflow quality fallback; else a full warm solve, whose frozen
+        state becomes the next base."""
+        rows = self._incremental_rows_locked(cols, delta, dm, di)
+        if rows is not None:
+            pending = dispatch_solve(
+                cols, seed=self._seed, config=self.solve_config,
+                base=self._base, dirty_rows=rows, t_start=t0,
+                device=self.device,
+            )
+            plan = finalize_plan(pending)
+            demand = float(np.sum(cols.sizes * cols.copies))
+            budget = self._base.overflow + INCREMENTAL_OVERFLOW_FRAC * max(
+                demand, 1e-9
+            )
+            if plan.stats["overflow"] <= budget:
+                # The merge target advances; the column state and the
+                # overflow reference stay frozen at the full solve.
+                self._base = self._base._replace(
+                    indices=pending.sol.indices, valid=pending.sol.valid
+                )
+                return plan
+            log.info(
+                "incremental re-solve overflow %.3g drifted past the "
+                "base solve's %.3g + %.2f%% of demand; falling back to "
+                "a full solve",
+                plan.stats["overflow"], self._base.overflow,
+                INCREMENTAL_OVERFLOW_FRAC * 100,
+            )
+            self._base = None
+        warm_g, warm_price = self._epoch_carries_locked(delta)
+        pending = dispatch_solve(
+            cols, seed=self._seed, warm_g=warm_g, warm_price=warm_price,
+            config=self.solve_config, t_start=t0, device=self.device,
+        )
+        plan = finalize_plan(pending)
+        sol = pending.sol
+        self._base = SolveBase(
+            indices=sol.indices, valid=sol.valid, g=sol.g,
+            prices=sol.prices, row_err=sol.row_err, seed=self._seed,
+            overflow=plan.stats["overflow"],
+            rates=np.asarray(cols.rates, np.float32).copy(),
+        )
+        return plan
+
+    def refresh(
+        self,
+        models: Sequence[tuple[str, ModelRecord]],
+        instances: Sequence[tuple[str, InstanceRecord]],
+        rpm_fn: Optional[RpmSource] = None,
+        incremental: bool = False,
+    ) -> GlobalPlan:
+        with self._refresh_lock:
+            self._generation += 1
+            delta = None
+            if models and instances:
+                t0 = time.perf_counter()
+                cols, delta, dm, di = self._build_cols_locked(
+                    models, instances, rpm_fn, incremental
+                )
+                plan = self._solve_locked(cols, delta, dm, di, t0)
+            else:
+                # Empty view: no solve, so the seed does not rotate and
+                # the carries stay paired with the current draw.
+                plan = solve_plan(
+                    models, instances, rpm_fn, seed=self._seed,
+                    constraints=self.constraints, warm_g=self._warm_g,
+                    config=self.solve_config, warm_price=self._warm_price,
+                    device=self.device,
+                )
+            # Keep the carries across empty-snapshot blips.
+            if plan.warm_g is not None:
+                self._warm_g = plan.warm_g
+            if plan.warm_price is not None:
+                self._warm_price = plan.warm_price
+            if delta is not None:
+                plan.stats["delta_snapshot"] = delta
+            plan.generation = self._generation
+            self._plan = plan
+            log.info(
+                "placement plan refreshed: %d models x %d instances in %.1f ms",
+                plan.num_models(), len(instances), plan.solve_ms,
+            )
+            return plan
+
+    def adopt(self, plan: Optional[GlobalPlan]) -> None:
+        """Install a plan published by the leader (None clears)."""
+        self._plan = plan
+
+    # -- SPI ----------------------------------------------------------------
+
+    def choose_load_target(
+        self, req: PlacementRequest, view: ClusterView
+    ) -> Optional[str]:
+        plan = self._plan
+        if plan is not None and plan.age_ms() <= self.plan_ttl_ms:
+            desired = plan.lookup(req.model_id)
+            if desired:
+                live = {iid for iid, rec in view.placeable()}
+                for iid in desired:
+                    if iid in req.exclude or iid not in live:
+                        continue
+                    if iid in req.model.instance_ids:
+                        continue  # already loaded there
+                    return LOAD_HERE if iid == req.requesting_instance else iid
+        return self.fallback.choose_load_target(req, view)
+
+    def choose_group_targets(
+        self, req: PlacementRequest, view: ClusterView,
+        shard_count: int, shard_units: int,
+    ) -> Optional[dict[str, int]]:
+        """The plan's instances for this model become the group's
+        preferred members, sticky members kept; the fallback's group
+        planner tops the group up to ``shard_count``."""
+        keep: dict[str, int] = {}
+        taken: set[int] = set()
+        for iid, idx in req.model.shard_instances.items():
+            if (
+                0 <= idx < shard_count
+                and idx not in taken
+                and iid not in req.exclude
+                and iid in view.live_map
+                and not view.live_map[iid].draining
+            ):
+                keep[iid] = idx
+                taken.add(idx)
+        plan = self._plan
+        if plan is not None and plan.age_ms() <= self.plan_ttl_ms:
+            live = view.live_map
+            missing = [i for i in range(shard_count) if i not in taken]
+            for iid in plan.lookup(req.model_id) or ():
+                if not missing:
+                    break
+                rec = live.get(iid)
+                if (
+                    iid in keep or iid in req.exclude or rec is None
+                    or rec.disabled or rec.draining
+                    or rec.free_units < shard_units
+                ):
+                    continue
+                idx = missing.pop(0)
+                keep[iid] = idx
+                taken.add(idx)
+        if len(taken) == shard_count:
+            return keep
+        # Top up the rest through the fallback, with the adopted members
+        # held sticky by a request whose record claims them.
+        merged = dict(req.model.shard_instances)
+        merged.update(keep)
+        model = req.model
+        if merged != model.shard_instances:
+            model = copy.deepcopy(req.model)
+            model.shard_instances = merged
+            synth = dataclasses.replace(req, model=model)
+        else:
+            synth = req
+        return self.fallback.choose_group_targets(
+            synth, view, shard_count, shard_units
+        )
+
+    def choose_serve_target(
+        self, model: ModelRecord, view: ClusterView, exclude: frozenset[str]
+    ) -> Optional[str]:
+        # Serve balancing stays local: it needs fresh busyness, not a
+        # global solve.
+        return self.fallback.choose_serve_target(model, view, exclude)
+
+    def rank_serve_candidates(
+        self, model: ModelRecord, view: ClusterView, exclude: frozenset[str]
+    ):
+        return self.fallback.rank_serve_candidates(model, view, exclude)

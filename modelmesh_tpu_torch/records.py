@@ -2,7 +2,9 @@
 
 A copy of the registry schema's solver-facing part (the reference's
 ModelRecord.java / InstanceRecord.java, as the JAX package's
-``records.py`` holds them): everything ``snapshot_columns`` reads, and
+``records.py`` holds them): everything ``snapshot_columns`` and the
+placement strategy read (the KV ``version`` that versioned dirty marks
+compare against, the group and drain fields of the strategy SPI), and
 nothing of the KV persistence or the serving lifecycle.
 """
 
@@ -26,6 +28,9 @@ class ModelRecord:
     instance_ids: dict[str, int] = dataclasses.field(default_factory=dict)
     # instance_id -> claim timestamp (ms): copies being loaded right now.
     loading_instances: dict[str, int] = dataclasses.field(default_factory=dict)
+    # Placement groups: instance_id -> shard index of a sharded model.
+    shard_instances: dict[str, int] = dataclasses.field(default_factory=dict)
+    version: int = 0             # KV record version
 
     @property
     def copy_count(self) -> int:
@@ -42,3 +47,9 @@ class InstanceRecord:
     labels: list[str] = dataclasses.field(default_factory=list)
     shutting_down: bool = False
     disabled: bool = False       # excluded from new placements
+    draining: bool = False       # graceful drain: no new placements
+    version: int = 0             # KV record version
+
+    @property
+    def free_units(self) -> int:
+        return max(self.capacity_units - self.used_units, 0)

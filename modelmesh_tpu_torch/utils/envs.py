@@ -67,6 +67,12 @@ REGISTRY: dict[str, EnvVar] = {
                "sparse-path kernel backend: auto (default — the CUDA "
                "kernels for CUDA tensors, their plain PyTorch versions "
                "for CPU tensors) | cuda (CUDA tensors required)", _ENGINE),
+        EnvVar("MM_SOLVER_INCREMENTAL_MAX_DIRTY_FRAC", "float", "0.05",
+               "dirty-row fraction ceiling for the incremental re-solve "
+               "(frozen column potentials/prices); above it — or when "
+               "the merged overflow fails the quality gate — the refresh "
+               "falls back to a full warm solve; 0 disables incremental",
+               _ENGINE),
     ]
 }
 
@@ -85,3 +91,13 @@ def get_int(name: str) -> int:
         return int(os.environ.get(name, spec.default))
     except ValueError:
         return int(spec.default)
+
+
+def get_float(name: str) -> float:
+    spec = REGISTRY[name]
+    if not spec.default and not os.environ.get(name):
+        raise ValueError(f"{name} is unset and has no default")
+    try:
+        return float(os.environ.get(name, spec.default))
+    except ValueError:
+        return float(spec.default)

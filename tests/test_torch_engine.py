@@ -172,10 +172,13 @@ def test_default_device_without_cuda_raises(snapshots, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(donate=True), dict(base=object(),
+    dict(mesh=object()), dict(donate=True), dict(mesh=object(),
+                                                 base=object(),
                                                  dirty_rows=[0]),
 ])
 def test_unported_dispatch_options_raise(snapshots, kw):
+    """Meshes and donation are not ported; the incremental re-solve is,
+    but not on a mesh."""
     with pytest.raises(NotImplementedError):
         te.dispatch_solve(snapshots[1], device="cpu", **kw)
 
