@@ -100,6 +100,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              agreement >= 0.97, overflow within 0.5% of demand; kernel 4
              at bf16 [1024, 1024] against its plain version, timed beside
              its bound and torch.logsumexp.
+9. threefry — JAX's threefry Gumbel draw (csrc/threefry.cu) against its
+             plain version (modelmesh_tpu_torch/random.py) on the card,
+             bits and Gumbel values bitwise, at [4096, 1024] and a ragged
+             [1000, 1001], and the card's bits against the CPU's; time per
+             launch over 20 at [131072, 1024] beside its bound, the plain
+             version and torch.rand + two logs; one dense solve of the main
+             fleet pinned dense with noise_impl="threefry" at tau 1
+             (launch counters zeroed just before it: one draw a solve); the
+             dense parity fleet (10,000 x 128) under the pin on the card
+             and on the CPU, with phase 4's gates.
+10. models — a model server answering requests on the card:
+             start_torch_runtime(device="cuda:0") on localhost, driven
+             through the port's stub (RuntimeStatus, LoadModel, Predict,
+             ModelSize, UnloadModel) for each family at its default spec
+             and transformer://d=64,heads=4,seq=128,layers=2: load time,
+             weights byte for byte against a CPU build, logits against the
+             CPU path, Predict latency over the loopback (median of 50).
+             Then InProcessTorchLoader on the card: a same-model
+             micro-batch of 8 requests, fused groups of 8 mlps and 8
+             transformers (one fused dispatch each, no fallback, equal to
+             the per-model path within the family's tolerance; fused
+             against per-model dispatch timed, one of each profiled: the
+             device's busy time and idle share), and a load from a CPU
+             loader's weight stream.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -154,23 +178,35 @@ STEADY_MIN_INCREMENTAL = 5
 STEADY_PARITY_CYCLES = 3
 STEADY_LSE_SHAPE = (1024, 1024)
 # Published H100 peaks (NVIDIA data sheets): device memory bytes/s by part,
-# and f32 operations/s outside the tensor cores.
+# and f32 operations/s outside the tensor cores. 32-bit integer operations
+# issue on 64 INT32 lanes per SM against 128 FP32 lanes (the H100
+# architecture whitepaper), and the f32 figure counts an FMA as two: a
+# quarter of the f32 figure.
 PEAK_BYTES_PER_S = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 PEAK_F32_OPS_PER_S = 67e12
-# f32/int32 operations by the data sheet's count, per cost-matrix element
-# and per candidate (set mask bit). select_candidates and masked_row_min:
-# the selection key (hash: 10 integer ops; uniform, clamp, two logs, two
-# negations, scale, subtract), the mask test and the min, on every element.
-# implied_load, per slot: the weight's multiply and the add. The bit-reading
-# kernels: a bit test and a convert per element; per candidate a subtract,
-# a divide, an exp and a multiply-add (the fused step one more
-# multiply-add, for the column). The LSE kernels: subtract, scale, max,
-# subtract, exp, add; the fused LSE step both reductions.
-OPS_PER_ELEMENT = {"select_candidates": 20, "masked_row_min": 20,
+PEAK_INT32_OPS_PER_S = PEAK_F32_OPS_PER_S / 4
+# f32 operations by the data sheet's count, per cost-matrix element and per
+# candidate (set mask bit). select_candidates and masked_row_min: the
+# selection key (uniform, clamp, two logs, two negations, scale, subtract),
+# the mask test and the min, on every element. implied_load, per slot: the
+# weight's multiply and the add. The bit-reading kernels: a bit test and a
+# convert per element; per candidate a subtract, a divide, an exp and a
+# multiply-add (the fused step one more multiply-add, for the column). The
+# LSE kernels: subtract, scale, max, subtract, exp, add; the fused LSE step
+# both reductions. The threefry Gumbel draw: the uniform's subtract, add
+# and max, two logs and two negations.
+OPS_PER_ELEMENT = {"select_candidates": 10, "masked_row_min": 10,
                    "masked_row_matvec": 2,
                    "masked_col_matvec": 2, "masked_sinkhorn_step": 2,
                    "row_lse_partial": 6, "col_lse_partial": 6,
-                   "lse_sinkhorn_step": 12, "implied_load": 2}
+                   "lse_sinkhorn_step": 12, "implied_load": 2,
+                   "threefry_gumbel": 7}
+# 32-bit integer operations per element. The selection key's hash (10).
+# The threefry draw: 20 rounds of add, rotate, xor (60), 6 key injections
+# of 2 adds and the counters' split (14), the XOR of the two words (1), the
+# uniform's shift and or (2).
+INT32_OPS_PER_ELEMENT = {"select_candidates": 10, "masked_row_min": 10,
+                         "threefry_gumbel": 77}
 OPS_PER_CANDIDATE = {"masked_row_matvec": 5, "masked_col_matvec": 5,
                      "masked_sinkhorn_step": 7}
 REPLACES = {
@@ -186,10 +222,13 @@ REPLACES = {
                           "modelmesh_tpu/ops/pallas_lse.py:167"),
     # A TPU-only path, not a Pallas kernel.
     "implied_load": "modelmesh_tpu/ops/auction.py:144",
+    # XLA's threefry (jax.random.gumbel), not a Pallas kernel.
+    "threefry_gumbel": "modelmesh_tpu/ops/auction.py:337",
 }
 SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
            "lse": "modelmesh_tpu_torch/csrc/lse.cu",
-           "implied_load": "modelmesh_tpu_torch/csrc/implied_load.cu"}
+           "implied_load": "modelmesh_tpu_torch/csrc/implied_load.cu",
+           "threefry": "modelmesh_tpu_torch/csrc/threefry.cu"}
 LSE_EPS = 0.05
 LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # Where the LSE kernels are held against their plain versions: the tier,
@@ -206,6 +245,31 @@ SPARSE_TOL = dict(rtol=1e-5, atol=1e-6)
 # The auctions' implied load at the main path's shape: N x MAX_COPIES slots
 # onto the tier's instances, sizes as the synthetic fleet's (16-255).
 LOAD_TOL = dict(rtol=1e-6, atol=0.0)
+# The threefry draw: held bitwise against its plain version at these
+# shapes (and the card's bits against the CPU's at the first), and in
+# Gumbel values at the dense tier's [131072, 1024], where it is timed.
+THREEFRY_SHAPES = {"block": (4096, 1024), "ragged": RAGGED}
+# The model runtime: each family at its default spec, and the longest
+# sequence the repo's tests serve; the fused groups' size; gRPC Predict
+# calls timed per model; dispatch rounds timed per group.
+MODEL_SPECS = [
+    ("mlp", "mlp://"), ("linear", "linear://"), ("conv", "conv://"),
+    ("embedding", "embedding://"), ("transformer", "transformer://"),
+    ("transformer", "transformer://d=64,heads=4,seq=128,layers=2"),
+]
+FUSED_GROUP = 8
+PREDICT_CALLS = 50
+DISPATCH_ROUNDS = 20
+# Card against the port's CPU path, and batched or fused calls against
+# solo ones on the card, per family, as (rtol, atol / max|ref|). Measured
+# on an H100: conv and embedding equal, the transformers within 2.1e-6 of
+# max|ref|, fused groups within 9.4e-7. Another summation order (cuBLAS's,
+# a batched product's) moves f32 sums in the last bits; a product that ran
+# in bf16 where the reference promotes it to f32 (or a TF32 matmul) would
+# move the logits by ~1e-3 of max|ref| and fails.
+MODEL_TOL = {"mlp": (1e-5, 1e-5), "linear": (1e-5, 1e-5),
+             "conv": (0.0, 1e-4), "embedding": (0.0, 1e-4),
+             "transformer": (0.0, 1e-4)}
 
 
 def load_ops():
@@ -259,13 +323,16 @@ def time_ms(fn, reps: int) -> float:
 
 def bound(name: str, nbytes: int, elements: int, card: str,
           candidates: int = 0) -> dict:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger. ``candidates``:
-    this run's set mask bits, for the kernels whose work depends on them."""
+    """The least time the card could take: bytes over the memory rate, f32
+    operations over the f32 rate, or integer operations over the INT32
+    rate, whichever is largest. ``candidates``: this run's set mask bits,
+    for the kernels whose work depends on them."""
     bytes_ms = nbytes / peak_bytes_per_s(card) * 1e3
     ops = (OPS_PER_ELEMENT[name] * elements
            + OPS_PER_CANDIDATE.get(name, 0) * candidates)
-    ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
+    int_ops = INT32_OPS_PER_ELEMENT.get(name, 0) * elements
+    ops_ms = max(ops / PEAK_F32_OPS_PER_S,
+                 int_ops / PEAK_INT32_OPS_PER_S) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes}
@@ -997,18 +1064,18 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
 def phase_parity(dev, fleet=PARITY_FLEET, phase: str = "parity",
                  path: str = "sparse") -> dict:
     """One snapshot solved on the card and on the CPU; returns the card
-    solve's kernel launches, sparse, LSE and implied load (counters zeroed
-    just before it)."""
+    solve's kernel launches, sparse, LSE, implied load and threefry
+    (counters zeroed just before it)."""
     cuda_load = load_ops()
+    _, cuda_random = random_ops()
     cols = steady_fleet(*fleet)
     cfg = solve_config_from_env()
     torch.cuda.synchronize()
-    cuda_sparse.reset_launches()
-    cuda_lse.reset_launches()
-    cuda_load.reset_launches()
+    for mod in (cuda_sparse, cuda_lse, cuda_load, cuda_random):
+        mod.reset_launches()
     gpu_run = dispatch_solve(cols, seed=5, config=cfg, device=dev)
     launches = dict(cuda_sparse.launches, **cuda_lse.launches,
-                    **cuda_load.launches)
+                    **cuda_load.launches, **cuda_random.launches)
     cpu_run = dispatch_solve(cols, seed=5, config=cfg, device="cpu")
     check(gpu_run.path == cpu_run.path == path,
           f"{phase}: paths {gpu_run.path}/{cpu_run.path}, want {path}")
@@ -1068,23 +1135,23 @@ def phase_dense_wide(dev) -> dict:
 
 
 @contextlib.contextmanager
-def solver_pin(value: str):
-    """MM_SOLVER_SPARSE=``value`` for the duration, restored after
-    (bench.py's run_path pin)."""
-    prev = os.environ.get("MM_SOLVER_SPARSE")
-    os.environ["MM_SOLVER_SPARSE"] = value
+def env_pin(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` for the duration,
+    restored after (bench.py's run_path pin)."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if prev is None:
-            os.environ.pop("MM_SOLVER_SPARSE", None)
+            os.environ.pop(name, None)
         else:
-            os.environ["MM_SOLVER_SPARSE"] = prev
+            os.environ[name] = prev
 
 
 def dense_pin():
     """MM_SOLVER_SPARSE=0 for the duration."""
-    return solver_pin("0")
+    return env_pin("MM_SOLVER_SPARSE", "0")
 
 
 def packed_key_top_k(x, k: int):
@@ -1319,7 +1386,7 @@ def steady_run(dev, fleet, frac: float, tag: str, demand: float) -> dict:
     the incremental cycles are checked: one host sync, the drift budget,
     the row LSE and the implied load once each and nothing else."""
     models, instances, rpm, _ = fleet
-    with solver_pin("1"):
+    with env_pin("MM_SOLVER_SPARSE", "1"):
         new_strategy(dev, frac).refresh(models, instances, rpm)
         strat = new_strategy(dev, frac)
         torch.cuda.synchronize(dev)
@@ -1398,7 +1465,7 @@ def steady_stages(dev, strat, fleet) -> dict:
         stages[name] = (time.perf_counter() - t) * 1e3
         return out
 
-    with solver_pin("1"):
+    with env_pin("MM_SOLVER_SPARSE", "1"):
         cache = strat._snap_cache
         cols = stage("patch_ms", lambda: te.patch_columns(
             cache, models, instances, rpm, set(dirty), set()))
@@ -1457,7 +1524,7 @@ def check_incremental_repeatable(dev, strat, fleet) -> dict:
     models = fleet[0]
     rows = sorted(cache.model_pos[models[i][0]]
                   for i in range(0, len(models), 97))
-    with solver_pin("1"):
+    with env_pin("MM_SOLVER_SPARSE", "1"):
         sols = [dispatch_solve(cache.cols, seed=strat._seed,
                                config=steady_solve_config(), base=base,
                                dirty_rows=rows, device=dev).sol
@@ -1481,7 +1548,7 @@ def steady_parity(dev) -> dict:
     demand = demand_of(snapshot_columns(models, instances, rpm))
     strats = {"cpu": new_strategy("cpu", 0.05), "gpu": new_strategy(dev, 0.05)}
     paths = {k: [] for k in strats}
-    with solver_pin("1"):
+    with env_pin("MM_SOLVER_SPARSE", "1"):
         plans = {k: st.refresh(models, instances, rpm)
                  for k, st in strats.items()}
         for _ in range(STEADY_PARITY_CYCLES):
@@ -1552,6 +1619,366 @@ def phase_steady(dev, card: str) -> dict:
     return result
 
 
+def random_ops():
+    """The threefry wrappers, imported where a phase needs them (as
+    ``load_ops``)."""
+    from modelmesh_tpu_torch import random as prng
+    from modelmesh_tpu_torch.ops import cuda_random
+
+    return prng, cuda_random
+
+
+def phase_threefry(dev, card: str, cols) -> dict:
+    """JAX's threefry Gumbel draw on the card: the kernel against its plain
+    version (bits and Gumbel values bitwise) at THREEFRY_SHAPES, the card's
+    bits against the CPU's, the Gumbel values bitwise at the tier; its time
+    per launch at the tier beside its bound, the plain version and
+    torch.rand + two logs; one dense solve of
+    the main fleet with noise_impl="threefry" at tau 1 (one draw a solve,
+    counters zeroed just before it); the dense parity fleet under the pin
+    on the card and on the CPU."""
+    prng, cuda_random = random_ops()
+    key = prng.PRNGKey(SEED)
+    checked = {}
+    for tag, shape in THREEFRY_SHAPES.items():
+        bits = cuda_random.random_bits(key, shape, dev)
+        g = cuda_random.gumbel(key, shape, dev)
+        ref_bits = prng.random_bits(key, 32, shape, dev)
+        ref_g = prng.gumbel(key, shape, dev)
+        checked[tag] = {
+            "shape": list(shape),
+            "bits_differ": int((bits != ref_bits).sum().item()),
+            "gumbel_differ": bitwise_differs(g, ref_g),
+            "max_abs_err": max_abs(g, ref_g),
+            "finite": bool(torch.isfinite(g).all().item()),
+        }
+        check(torch.equal(bits, ref_bits),
+              f"threefry {tag}: bits differ from the plain version")
+        check(same_bytes(g, ref_g),
+              f"threefry {tag}: Gumbel values differ from the plain version")
+        check(checked[tag]["finite"], f"threefry {tag}: non-finite draw")
+    block = THREEFRY_SHAPES["block"]
+    cpu_bits = prng.random_bits(key, 32, block, "cpu")
+    card_bits = cuda_random.random_bits(key, block, dev).cpu()
+    check(torch.equal(card_bits, cpu_bits),
+          "threefry: the card's bits differ from the CPU's")
+    cpu_g = prng.gumbel(key, block, "cpu")
+    checked["card_vs_cpu"] = {
+        "bits_equal": True,
+        "gumbel_max_abs_err": max_abs(
+            cuda_random.gumbel(key, block, dev).cpu(), cpu_g),
+    }
+    # At the tier's shape, the main path's: the plain draw kept from its
+    # timing and held against the kernel's bitwise.
+    n, m = TIER
+    tiny = torch.finfo(torch.float32).tiny
+    plain = {}
+
+    def plain_draw():
+        plain["g"] = prng.gumbel(key, TIER, dev)
+
+    plain_ms = time_ms(plain_draw, 1)
+    g = cuda_random.gumbel(key, TIER, dev)
+    checked["tier"] = {
+        "shape": list(TIER),
+        "gumbel_differ": bitwise_differs(g, plain["g"]),
+        "max_abs_err": max_abs(g, plain["g"]),
+        "finite": bool(torch.isfinite(g).all().item()),
+    }
+    check(same_bytes(g, plain["g"]),
+          "threefry tier: Gumbel values differ from the plain version")
+    check(checked["tier"]["finite"], "threefry tier: non-finite draw")
+    del g, plain["g"]
+    timed = {
+        "shape": list(TIER),
+        "max_abs_err": checked["tier"]["max_abs_err"],
+        "ms": time_ms(lambda: cuda_random.gumbel(key, TIER, dev),
+                      KERNEL_REPS),
+        "plain_ms": plain_ms,
+        # One library draw of the same distribution (other bits).
+        "library_ms": time_ms(
+            lambda: -torch.log(-torch.log(
+                torch.rand(TIER, device=dev).clamp_min_(tiny))),
+            KERNEL_REPS),
+        **bound("threefry_gumbel", n * m * 4, n * m, card),
+    }
+
+    cuda_load = load_ops()
+    with dense_pin(), env_pin("MM_SOLVER_NOISE_IMPL", "threefry"):
+        cfg = solve_config_from_env()
+        check(cfg.noise_impl == "threefry" and cfg.tau > 0,
+              f"threefry pin not in the config: {cfg}")
+        finalize_plan(dispatch_solve(cols, seed=3_000_000, config=cfg,
+                                     device=dev))      # warm-up
+        torch.cuda.synchronize()
+        cuda_random.reset_launches()
+        cuda_lse.reset_launches()
+        cuda_load.reset_launches()
+        t = time.perf_counter()
+        plan = finalize_plan(dispatch_solve(cols, seed=300, config=cfg,
+                                            device=dev))
+        wall_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(cuda_random.launches, **cuda_lse.launches,
+                        **cuda_load.launches)
+        parity = phase_parity(dev, DENSE_PARITY_FLEET, "threefry_parity",
+                              "dense")
+    st = plan.stats
+    demand = demand_of(cols)
+    check(st["solver_path"] == "dense", f"threefry solve: {st['solver_path']}")
+    check(math.isfinite(st["overflow"]) and st["overflow"] >= 0,
+          "threefry solve: overflow not finite")
+    check(launches["threefry_gumbel"] == 1 and launches["threefry_bits"] == 0,
+          f"threefry solve launches {launches}")
+    check(parity["launches"]["threefry_gumbel"] == 1,
+          f"threefry_parity launches {parity['launches']}")
+    solve = {
+        "models": MAIN_FLEET[0], "instances": MAIN_FLEET[1],
+        "padded": list(TIER), "pin": "MM_SOLVER_SPARSE=0",
+        "noise_impl": "threefry", "tau": cfg.tau, "wall_ms": wall_ms,
+        "solve_ms": st["solve_ms"], "extract_ms": st["extract_ms"],
+        "overflow_frac": st["overflow"] / demand, "row_err": st["row_err"],
+        "auction_iters_run": st["auction_iters_run"],
+        "launches": launches,
+    }
+    emit({"phase": "threefry", "card": card, "checked": checked,
+          "threefry_gumbel": timed, "dense_solve": solve})
+    return {"threefry_gumbel": timed, "launches": launches}
+
+
+def model_input(model, rows: int, seed: int) -> np.ndarray:
+    """Seeded rows of a family's input (token ids for the int families)."""
+    rng = np.random.default_rng(seed)
+    shape = (rows, *model.input_shape)
+    if model.input_dtype == np.int32:
+        return rng.integers(-3, 5000, size=shape).astype(np.int32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def check_close(got: np.ndarray, want: np.ndarray, tol, what: str) -> float:
+    """|got - want| within rtol / atol·max|want|; returns the largest
+    error over max|want|."""
+    rtol, atol_frac = tol
+    scale = float(np.abs(want).max()) or 1.0
+    err = float(np.abs(got - want).max()) / scale
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{what}: shape {got.shape} / {want.shape} or non-finite")
+    check(bool(np.all(np.abs(got - want)
+                      <= atol_frac * scale + rtol * np.abs(want))),
+          f"{what}: error {err} of max|ref| past {tol}")
+    return err
+
+
+def serve_families(dev, card: str) -> dict:
+    """The gRPC runtime on the card, driven through the port's own stub:
+    status, then per family load (timed), weights against a CPU build
+    byte for byte, Predict against the CPU path, Predict latency, size,
+    unload."""
+    import grpc
+
+    from modelmesh_tpu_torch.models import families
+    from modelmesh_tpu_torch.models.server import (
+        PREDICT_METHOD,
+        start_torch_runtime,
+    )
+    from modelmesh_tpu_torch.proto import mesh_runtime_pb2 as rpb
+    from modelmesh_tpu_torch.runtime import grpc_defs
+
+    server, port, servicer = start_torch_runtime(
+        capacity_bytes=1 << 30, device=dev)
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    try:
+        stub = grpc_defs.make_stub(channel, grpc_defs.RUNTIME_SERVICE,
+                                   grpc_defs.RUNTIME_METHODS)
+        status = stub.RuntimeStatus(rpb.RuntimeStatusRequest(), timeout=60)
+        check(status.status == rpb.RuntimeStatusResponse.READY
+              and status.runtime_version == "torch-runtime/cuda"
+              and status.device_memory_bytes > 0,
+              f"runtime status {status}")
+        predict = grpc_defs.raw_method(channel, PREDICT_METHOD)
+        served = {}
+        for family, path in MODEL_SPECS:
+            mid = f"smoke-{path}"
+            info = rpb.ModelInfo(model_type=family, model_path=path)
+            t = time.perf_counter()
+            size = stub.LoadModel(rpb.LoadModelRequest(model_id=mid,
+                                                       info=info),
+                                  timeout=300).size_bytes
+            load_ms = (time.perf_counter() - t) * 1e3
+            model = servicer.store.get(mid)
+            cpu = families.build_model(mid, family, path, device="cpu")
+            check(model.device.type == "cuda", f"{path}: not on the card")
+            check(size == cpu.size_bytes, f"{path}: size {size}")
+            check([families.leaf_bytes(a) for a in
+                   families.leaves(model.params)]
+                  == [families.leaf_bytes(b) for b in
+                      families.leaves(cpu.params)],
+                  f"{path}: weights on the card differ from the CPU build")
+            md = ((grpc_defs.MODEL_ID_HEADER, mid),)
+            x = model_input(cpu, 4, SEED)
+            out = np.frombuffer(predict(x.tobytes(), metadata=md,
+                                        timeout=60), np.float32)
+            want = cpu.run(x).reshape(-1)
+            err = check_close(out, want, MODEL_TOL[family], path)
+            one = model_input(cpu, 1, SEED + 1).tobytes()
+            lat = []
+            for _ in range(PREDICT_CALLS):
+                t = time.perf_counter()
+                predict(one, metadata=md, timeout=60)
+                lat.append((time.perf_counter() - t) * 1e3)
+            check(stub.ModelSize(rpb.ModelSizeRequest(model_id=mid),
+                                 timeout=60).size_bytes == size,
+                  f"{path}: ModelSize")
+            stub.UnloadModel(rpb.UnloadModelRequest(model_id=mid),
+                             timeout=60)
+            check(servicer.store.get(mid) is None, f"{path}: not unloaded")
+            served[path] = {
+                "size_bytes": size, "load_ms": load_ms,
+                "max_err_vs_cpu": err,
+                "predict_ms_median": float(np.median(lat)),
+                "predict_ms_max": float(np.max(lat)),
+            }
+        return {"runtime_version": status.runtime_version,
+                "device_memory_bytes": status.device_memory_bytes,
+                "families": served}
+    finally:
+        channel.close()
+        server.stop(0)
+
+
+def dispatch_ms(fn) -> float:
+    """Median wall ms of ``fn`` over DISPATCH_ROUNDS (each ends in a copy
+    to the host), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(DISPATCH_ROUNDS):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def profile_share(fn) -> dict:
+    """One ``fn`` under torch.profiler: wall ms, device busy ms and the
+    device's idle share, and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "launches": sum(c for _, c in by_name.values()),
+            "top": [{"name": k, "ms": ms, "count": c}
+                    for k, (ms, c) in top]}
+
+
+def batch_on_card(dev) -> dict:
+    """``InProcessTorchLoader`` on the card: one same-model micro-batch of
+    FUSED_GROUP requests, and one fused group each of FUSED_GROUP mlps and
+    transformers (default specs) against the per-model path, timed both
+    ways; a load from a CPU loader's weight stream."""
+    from modelmesh_tpu_torch.models.server import InProcessTorchLoader
+    from modelmesh_tpu_torch.models import families
+    from modelmesh_tpu_torch.runtime.spi import BatchItem, ModelInfo
+
+    ld = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev)
+    out = {}
+    mlp = ModelInfo("mlp", "mlp://")
+    ld.load("same", mlp)
+    model = ld.store.get("same")
+    pls = [model_input(model, 1 + i % 3, SEED + i).tobytes()
+           for i in range(FUSED_GROUP)]
+    solo = [ld.call_model("same", "", p) for p in pls]
+    batched = ld.call_model_batch([BatchItem("same", payload=p)
+                                   for p in pls])
+    out["same_model"] = {
+        "requests": FUSED_GROUP,
+        "max_err_vs_solo": max(
+            check_close(np.frombuffer(b, np.float32),
+                        np.frombuffer(a, np.float32), MODEL_TOL["mlp"],
+                        "same-model batch")
+            for a, b in zip(solo, batched)),
+    }
+    for family, path in (("mlp", "mlp://"), ("transformer",
+                                             "transformer://")):
+        info = ModelInfo(family, path)
+        mids = [f"{family}-{i}" for i in range(FUSED_GROUP)]
+        for mid in mids:
+            ld.load(mid, info)
+        rep = ld.store.get(mids[0])
+        check(len({ld.batch_group_key(m) for m in mids}) == 1,
+              f"{family}: the group does not share a batch key")
+        pls = [model_input(rep, 1 + i % 2, SEED + 10 + i).tobytes()
+               for i in range(FUSED_GROUP)]
+        items = [BatchItem(m, payload=p) for m, p in zip(mids, pls)]
+        ld.store.fused_dispatches = ld.store.fused_fallbacks = 0
+        fused = ld.call_model_batch(items)
+        counts = (ld.store.fused_dispatches, ld.store.fused_fallbacks)
+        check(counts == (1, 0),
+              f"{family}: fused dispatches, fallbacks {counts}")
+        solo = [ld.call_model(m, "", p) for m, p in zip(mids, pls)]
+        err = max(check_close(np.frombuffer(b, np.float32),
+                              np.frombuffer(a, np.float32),
+                              MODEL_TOL[family], f"{family} fused group")
+                  for a, b in zip(solo, fused))
+        fused_ms = dispatch_ms(lambda: ld.call_model_batch(items))
+        fused_profile = profile_share(lambda: ld.call_model_batch(items))
+        ld.store.fused_enabled = False
+        per_model_ms = dispatch_ms(lambda: ld.call_model_batch(items))
+        per_model_profile = profile_share(
+            lambda: ld.call_model_batch(items))
+        ld.store.fused_enabled = True
+        out[f"fused_{family}"] = {
+            "models": FUSED_GROUP, "spec": path,
+            "fused_dispatches": counts[0], "fused_fallbacks": counts[1],
+            "max_err_vs_solo": err,
+            "fused_ms_median": fused_ms,
+            "per_model_ms_median": per_model_ms,
+            "fused_profile": fused_profile,
+            "per_model_profile": per_model_profile,
+        }
+        check(ld.store.fused_fallbacks == 0,
+              f"{family}: fused dispatch fell back")
+    cpu = InProcessTorchLoader(capacity_bytes=64 << 20, device="cpu")
+    cpu.load("streamed", mlp)
+    got = ld.load_from_stream("streamed", mlp,
+                              cpu.export_weights("streamed", None)).handle
+    check(got.device.type == "cuda", "streamed copy not on the card")
+    check([families.leaf_bytes(t) for t in families.leaves(got.params)]
+          == [families.leaf_bytes(t) for t in
+              families.leaves(cpu.store.get("streamed").params)],
+          "streamed weights differ")
+    x = model_input(got, 3, SEED + 30).tobytes()
+    out["stream_from_cpu"] = {"max_err_vs_cpu": check_close(
+        np.frombuffer(ld.call_model("streamed", "", x), np.float32),
+        np.frombuffer(cpu.call_model("streamed", "", x), np.float32),
+        MODEL_TOL["mlp"], "streamed mlp")}
+    return out
+
+
+def phase_models(dev, card: str) -> dict:
+    """A model server answering requests on the card: the gRPC runtime per
+    family, then the in-process loader's batching, fused dispatch and
+    weight streaming. No custom kernel runs here: the families' products
+    are PyTorch's (f32 without TF32, bf16), as the reference leaves them
+    to XLA."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 families would not be f32")
+    result = {"phase": "models", "card": card,
+              "grpc": serve_families(dev, card),
+              "in_process": batch_on_card(dev)}
+    emit(result)
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -1595,6 +2022,8 @@ def main() -> int:
     phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
     dense_wide_launches = phase_dense_wide(dev)
     steady = phase_steady(dev, card)
+    threefry = phase_threefry(dev, card, cols)
+    phase_models(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -1633,11 +2062,15 @@ def main() -> int:
             })
     load_entries[0]["steady_launches_per_refresh"] = (
         per_refresh["implied_load"])
+    threefry_entries = kernel_entries(
+        {"threefry_gumbel": threefry["threefry_gumbel"]}, "threefry",
+        threefry["launches"], {"threefry_gumbel": ("threefry", 1)})
     emit({"kernels": (
         kernel_entries(kernels, "masked_sparse", sparse_launches,
                        sparse_cells)
         + lse_entries
         + load_entries
+        + threefry_entries
     )})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
-"""PyTorch/CUDA port of modelmesh_tpu's global placement solver.
+"""PyTorch/CUDA port of modelmesh_tpu's accelerator paths.
 
 The JAX package (``modelmesh_tpu``) is the reference; this package imports
-neither it nor ``jax``. It holds the sparse global-placement solve — cost
-assembly, top-K candidate gather, sparse Sinkhorn, sparse auction — with
-the Sinkhorn hot loop in three CUDA kernels for Hopper
-(``csrc/masked_sparse.cu``), plus the host-side snapshot/dispatch/finalize
-layer of ``placement/jax_engine.py`` (``placement/torch_engine.py``).
+neither it nor ``jax``. It holds the global placement solve (both tiers,
+the steady-state refresh and the strategy; its kernels for Hopper under
+``csrc/``), JAX's threefry PRNG (``random.py``, with the Gumbel draw on
+the card in ``csrc/threefry.cu``), and the model runtime: the model
+families (``models/families.py``, weights byte for byte the reference's)
+and the in-process and gRPC model server (``models/server.py``).
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.py``).

@@ -41,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # C signature of every exported function, by library.
 SIGNATURES: dict[str, dict[str, list]] = {
@@ -69,6 +70,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "implied_load": {
         "mm_implied_load": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P],
+    },
+    "threefry": {
+        "mm_threefry": [_P, _U, _U, _L, _I, _P],
     },
 }
 

@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from modelmesh_tpu_torch import device as device_mod
-from modelmesh_tpu_torch.ops import cuda_load
+from modelmesh_tpu_torch import random as prng
+from modelmesh_tpu_torch.ops import cuda_load, cuda_random
 
 # Max copies of a single model the solver will place.
 MAX_COPIES: int = 8
@@ -41,11 +42,6 @@ _JITTER_KEY = 0x5EED
 _MASK32 = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
 _C2 = 0xC2B2AE35
-
-THREEFRY_MISSING = (
-    "noise_impl='threefry': the dense tier's threefry Gumbel draw is not "
-    "ported (ROADMAP queue 1); use noise_impl='hash' or tau=0"
-)
 
 
 class AuctionResult(NamedTuple):
@@ -116,12 +112,17 @@ def hash_gumbel(shape: tuple[int, int], seed: int, row_offset: int = 0,
 def gumbel_perturb(scores: torch.Tensor, tau: float, seed: int,
                    impl: str = "hash", row_offset: int = 0) -> torch.Tensor:
     """``scores`` in f32 plus Gumbel(0, tau) noise, so top-k draws ~
-    softmax(scores / tau). Only the "hash" draw is ported."""
+    softmax(scores / tau). ``impl``: "hash" the counter-based draw
+    (``hash_gumbel``, shifted by ``row_offset``); "threefry" JAX's PRNG,
+    ``jax.random.gumbel(PRNGKey(seed), scores.shape)`` bit for bit in its
+    uniforms (the kernel of ``cuda_random`` on the card)."""
     if impl not in ("threefry", "hash"):
         raise ValueError(f"noise impl {impl!r} (expected threefry | hash)")
     if impl == "threefry":
-        raise NotImplementedError(THREEFRY_MISSING)
-    g = hash_gumbel(scores.shape, seed, row_offset, device=scores.device)
+        g = cuda_random.gumbel(prng.PRNGKey(seed), tuple(scores.shape),
+                               scores.device)
+    else:
+        g = hash_gumbel(scores.shape, seed, row_offset, device=scores.device)
     return scores.to(torch.float32) + tau * g
 
 
@@ -224,12 +225,10 @@ def check_rounding_config(noise_impl: str, final_select: str, iters: int):
 
 
 def check_auction_config(*, noise_impl: str, final_select: str, iters: int,
-                         tau: float, load_impl: str) -> None:
+                         load_impl: str) -> None:
     """Every knob the dense auction reads, checked before any work."""
     check_rounding_config(noise_impl, final_select, iters)
     resolve_load_impl(load_impl)
-    if tau > 0 and noise_impl == "threefry":
-        raise NotImplementedError(THREEFRY_MISSING)
 
 
 def price_step(load, cap, price, eta_t):
@@ -413,7 +412,7 @@ def auction(
     off the TPU); "none" returns the best iterate. ``price_scale``
     converts prices into score units."""
     check_auction_config(noise_impl=noise_impl, final_select=final_select,
-                         iters=iters, tau=tau, load_impl=load_impl)
+                         iters=iters, load_impl=load_impl)
     num_instances = capacity.shape[0]
     load_impl = resolve_load_impl(load_impl, scores.device)
     seed = int(seed) & _MASK32

@@ -43,6 +43,9 @@ class SolveConfig(NamedTuple):
     # CPU tensors) | scatter (index_add_; not reproducible on the card) |
     # fused (the fixed-order kernel; on the CPU its one-hot plain version).
     load_impl: str = "auto"
+    # Rounding noise: hash (the counter-based draw) | threefry (JAX's
+    # PRNG, ``jax.random.gumbel``; the sparse tier refuses it at tau > 0,
+    # so the dispatch routes it dense).
     noise_impl: str = "hash"
     final_select: str = "exact"
     # Sparse top-K candidate width: > 0 (and < M) solves sparse.
@@ -101,8 +104,7 @@ def solve_placement(
 def _solve_dense(problem, config: SolveConfig, seed: int, init) -> Placement:
     check_auction_config(
         noise_impl=config.noise_impl, final_select=config.final_select,
-        iters=config.auction_iters, tau=config.tau,
-        load_impl=config.load_impl,
+        iters=config.auction_iters, load_impl=config.load_impl,
     )
     C = costs_mod.assemble_cost(
         problem, weights=config.weights, dtype=config.dtype

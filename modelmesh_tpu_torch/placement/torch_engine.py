@@ -791,8 +791,7 @@ def dispatch_solve(
     ``carry`` as (g0, price0) tensors already padded and column-aligned on
     the device; else the ``warm_g``/``warm_price`` per-instance-id dicts
     of the previous plan (instances unknown to them start cold); else
-    zeros. ``mesh`` and ``donate`` are not ported and raise, as does the
-    threefry noise at tau > 0."""
+    zeros. ``mesh`` and ``donate`` are not ported and raise."""
     if mesh is not None:
         raise NotImplementedError("sharded solve: ROADMAP queue 1")
     if donate:

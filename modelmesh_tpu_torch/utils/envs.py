@@ -1,7 +1,7 @@
 """Registry of the environment knobs the port reads.
 
 The port's own copy of the reference registry's accessors, holding only
-the knobs of the placement solve. ``get`` raises ``KeyError``
+the knobs the port reads: the placement solve's and the model runtime's. ``get`` raises ``KeyError``
 for an unregistered name, so a typo'd knob fails at the call site instead
 of silently reading the default.
 """
@@ -16,13 +16,14 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class EnvVar:
     name: str
-    kind: str          # str | int | float
+    kind: str          # str | int | float | bool
     default: str
     help: str
     consumer: str      # module that reads it
 
 
 _ENGINE = "placement/torch_engine.py"
+_SERVER = "models/server.py"
 
 REGISTRY: dict[str, EnvVar] = {
     e.name: e
@@ -43,7 +44,8 @@ REGISTRY: dict[str, EnvVar] = {
         EnvVar("MM_SOLVER_LOAD_IMPL", "str", "",
                "auction implied-load histogram: auto | scatter", _ENGINE),
         EnvVar("MM_SOLVER_NOISE_IMPL", "str", "",
-               "rounding noise generator: hash (threefry is not ported)",
+               "rounding noise generator: hash | threefry (JAX's PRNG; "
+               "routes the solve to the dense tier)",
                _ENGINE),
         EnvVar("MM_SOLVER_FINAL_SELECT", "str", "",
                "auction epilogue selection: exact | approx | none",
@@ -73,6 +75,19 @@ REGISTRY: dict[str, EnvVar] = {
                "the merged overflow fails the quality gate — the refresh "
                "falls back to a full warm solve; 0 disables incremental",
                _ENGINE),
+        # The model runtime's knobs, with the reference's defaults.
+        EnvVar("MM_FUSED_DISPATCH", "bool", "1",
+               "fused cross-model dispatch on the model runtime: "
+               "co-located same-architecture models of a layer-streamable "
+               "family share one batch group and execute a multi-model "
+               "micro-batch as ONE stacked (vmapped) call, falling back "
+               "per-model when the group's membership moved", _SERVER),
+        EnvVar("MM_TRANSFER_CHUNK_BYTES", "int", str(1 << 20),
+               "weight-transfer chunk granularity (bytes per chunk), read "
+               "by the exporting loader's serializer", _SERVER),
+        EnvVar("MM_MAX_MSG_BYTES", "int", str(16 << 20),
+               "gRPC message cap on every server/channel",
+               "utils/grpcopts.py"),
     ]
 }
 
@@ -101,3 +116,15 @@ def get_float(name: str) -> float:
         return float(os.environ.get(name, spec.default))
     except ValueError:
         return float(spec.default)
+
+
+def get_bool(name: str) -> bool:
+    """Boolean knob: accepts 1/0, true/false, yes/no, on/off (any case).
+    Junk raises — a silently-disabled opt-in is the failure mode this
+    registry exists to prevent."""
+    raw = str(os.environ.get(name, REGISTRY[name].default)).strip().lower()
+    if raw in ("1", "true", "yes", "on"):
+        return True
+    if raw in ("0", "false", "no", "off", ""):
+        return False
+    raise ValueError(f"{name}={raw!r} is not a boolean")

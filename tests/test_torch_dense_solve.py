@@ -295,7 +295,7 @@ def test_cpu_dense_solve_launches_no_kernel(solve_problems, monkeypatch):
 
 
 @pytest.mark.parametrize("bad,err,match", [
-    (dict(noise_impl="threefry"), NotImplementedError, "threefry"),
+    (dict(noise_impl="philox"), ValueError, "noise_impl"),
     (dict(load_impl="onehot"), ValueError, "load_impl"),
     (dict(lse_impl="cuda"), ValueError, "CUDA device"),
     (dict(lse_impl="pallas"), ValueError, "lse_impl"),
@@ -304,6 +304,23 @@ def test_cpu_dense_solve_launches_no_kernel(solve_problems, monkeypatch):
 def test_dense_config_validation(solve_problems, bad, err, match):
     with pytest.raises(err, match=match):
         solve_placement(solve_problems[1], SolveConfig(**bad))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_threefry_dense_solve_matches(solve_problems, dtype):
+    """noise_impl="threefry" at tau 1: the draw is JAX's PRNG
+    (``jax.random.gumbel(PRNGKey(seed), shape)``, its uniforms bit for bit,
+    its double log PyTorch's), held by the dense parity gates: agreement
+    >= 0.97, overflow within 0.5% of demand, equal iteration counts."""
+    ref, got = _solve_pair(solve_problems, dtype, noise_impl="threefry",
+                           tau=1.0)
+    agree = _agreement(np.asarray(ref.valid), np.asarray(ref.indices),
+                       got.valid.numpy(), got.indices.numpy())
+    assert agree >= 0.97, agree
+    assert abs(float(got.overflow) - float(ref.overflow)) <= (
+        0.005 * _demand(solve_problems[0]))
+    assert got.sinkhorn_iters_run == int(ref.sinkhorn_iters_run)
+    assert got.auction_iters_run == int(ref.auction_iters_run)
 
 
 def test_threefry_without_noise_runs(solve_problems):

@@ -226,11 +226,22 @@ def test_dense_pin_at_sparse_width_matches_reference(snapshots, monkeypatch):
 
 
 def test_threefry_noise_raises(snapshots):
-    """The threefry pin routes dense (as in the reference), whose threefry
-    draw is not ported: it raises rather than drawing hash noise."""
+    """The threefry pin routes dense (as in the reference) and draws JAX's
+    PRNG there: no refusal, and the plan holds the dense parity gates. The
+    name is the one this test had when the port refused the pin; it is
+    kept so the test's record carries on."""
+    jc, _ = snapshots
+    from modelmesh_tpu.ops.solve import SolveConfig as JaxConfig
+
+    jcfg = JaxConfig(noise_impl="threefry")
     cfg = SolveConfig(noise_impl="threefry")
-    with pytest.raises(NotImplementedError, match="threefry"):
-        te.dispatch_solve(snapshots[1], config=cfg, device="cpu")
+    jplan = je.finalize_plan(je.dispatch_solve(jc, config=jcfg, seed=3))
+    tplan = te.finalize_plan(te.dispatch_solve(
+        columns_from_numpy(jc), config=cfg, seed=3, device="cpu"))
+    assert tplan.stats["solver_path"] == jplan.stats["solver_path"] == "dense"
+    assert _plans_agree(jc, jplan, tplan) >= 0.97
+    for key in ("sinkhorn_iters_run", "auction_iters_run"):
+        assert tplan.stats[key] == jplan.stats[key]
 
 
 def test_solve_plan_end_to_end(pinned_clock):

@@ -195,10 +195,16 @@ def test_sinkhorn_shape_rule(kernel_calls, wide):
 def test_dense_route_raises(problems):
     """topk = 0 or >= M routes dense (tests/test_torch_dense_solve.py holds
     that tier against the reference); there the sparse-only knob checks
-    do not apply, and what the dense tier does not port raises."""
-    with pytest.raises(NotImplementedError, match="threefry"):
-        solve_placement(problems[1], SolveConfig(topk=0,
-                                                 noise_impl="threefry"))
+    do not apply: the threefry pin that the sparse tier refuses solves
+    dense and holds the dense parity gates, and a dense-tier knob that
+    does not apply to CPU tensors raises."""
+    jp, tp = problems
+    ref = jax_solve(jp, JaxConfig(topk=0, noise_impl="threefry"), seed=3)
+    got = solve_placement(tp, SolveConfig(topk=0, noise_impl="threefry"),
+                          seed=3)
+    assert _agreement(ref, got) >= 0.97
+    assert abs(float(got.overflow) - float(ref.overflow)) <= (
+        0.005 * _demand(jp))
     with pytest.raises(ValueError, match="lse_impl"):
         solve_placement(problems[1], SolveConfig(topk=M, lse_impl="cuda"))
 

@@ -214,16 +214,24 @@ def test_seed_rotates_and_price_carry_drops_on_full_rebuild():
 
 def test_threefry_strategy_takes_full_path():
     """A threefry pin at tau > 0 never routes incremental (its draw cannot
-    be replayed at scattered rows): the refresh goes full, where the
-    dense tier's threefry raises as not ported, instead of the re-solve's
-    ValueError."""
+    be replayed at scattered rows, the reference's gate): the refresh goes
+    full and dense, where the threefry draw runs, on the port as on the
+    reference's strategy fed the same records."""
     models, instances = _models(128, ["i0", "i1"]), _instances(4)
     strat = _strategy()
-    strat.refresh(models, instances)
+    jstrat = je.JaxPlacementStrategy()
+    for s in (strat, jstrat):
+        s.refresh(models, instances)
     strat.solve_config = SolveConfig(noise_impl="threefry")
-    strat.mark_dirty(models=["m3"])
-    with pytest.raises(NotImplementedError, match="threefry"):
-        strat.refresh(models, instances, incremental=True)
+    jstrat.solve_config = JaxConfig(noise_impl="threefry")
+    for s in (strat, jstrat):
+        s.mark_dirty(models=["m3"])
+    plan = strat.refresh(models, instances, incremental=True)
+    jplan = jstrat.refresh(models, instances, incremental=True)
+    assert plan.stats["solver_path"] == jplan.stats["solver_path"] == "dense"
+    agree = np.mean([jplan.lookup(m) == plan.lookup(m)
+                     for m in jplan.placements])
+    assert agree >= 0.97
 
 
 # -- tests/test_steady_refresh.py ---------------------------------------------
