@@ -100,6 +100,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              agreement >= 0.97, overflow within 0.5% of demand; kernel 4
              at bf16 [1024, 1024] against its plain version, timed beside
              its bound and torch.logsumexp.
+   pipelined — the pipelined steady refresh (placement/refresh_loop.py,
+             PipelinedRefresher) at the main fleet under the sparse pin
+             and the steady gates, beside the blocking refresh on the
+             same churn (two fleets from one seed, 1,000 models a cycle):
+             a cold blocking refresh and a priming submit, then 6 cycles,
+             each running a blocking refresh(incremental=True) and a
+             pipelined submit in turns (the blocking one first on even
+             cycles), and the drain.
+             Per pipelined cycle: submit wall ms, the dispatched flight's
+             path, dirty rows and dispatch host ms, the emitted plan's
+             wait on its readback event, host syncs (at most 1 on an
+             incremental cycle) and launches (kernel 4 and the implied
+             load once each and nothing else on an incremental cycle;
+             counters zeroed just before each submit). Every generation
+             emitted once, in order; incremental plans within the base's
+             overflow + 0.5% of demand; at least 4 of 6 cycles
+             incremental; medians and maxima of both runs' wall times,
+             and the cycle-by-cycle difference.
+             Then the pipelined sequence at 20,000 x 256 (3 cycles) on the
+             card and on the CPU: paths equal, agreement >= 0.97,
+             overflow within 0.5% of demand.
 9. threefry — JAX's threefry Gumbel draw (csrc/threefry.cu) against its
              plain version (modelmesh_tpu_torch/random.py) on the card,
              bits and Gumbel values bitwise, at [4096, 1024] and a ragged
@@ -113,16 +134,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 10. models — a model server answering requests on the card:
              start_torch_runtime(device="cuda:0") on localhost, driven
              through the port's stub (RuntimeStatus, LoadModel, Predict,
-             ModelSize, UnloadModel) for each family at its default spec
-             and transformer://d=64,heads=4,seq=128,layers=2: load time,
-             weights byte for byte against a CPU build, logits against the
-             CPU path, Predict latency over the loopback (median of 50).
+             ModelSize, UnloadModel) for each family at its default spec,
+             transformer://d=64,heads=4,seq=128,layers=2 and the MoE
+             transformers transformer://experts=8 and
+             transformer://d=64,heads=4,seq=64,layers=2,experts=16,groups=8
+             (parallel/moe.py's dense oracle): load time, weights byte
+             for byte against a CPU build, logits against the CPU path
+             (for MoE: every token's expert against the CPU's, a token
+             routed otherwise reported with its top-2 margin, which must
+             be a near-tie, and the logits compared where routing
+             agrees), Predict latency over the loopback (median of 50).
              Then InProcessTorchLoader on the card: a same-model
              micro-batch of 8 requests, fused groups of 8 mlps and 8
              transformers (one fused dispatch each, no fallback, equal to
              the per-model path within the family's tolerance; fused
              against per-model dispatch timed, one of each profiled: the
-             device's busy time and idle share), and a load from a CPU
+             device's busy time and idle share), MoE batches of 2 (one
+             model, and two models of one architecture) run per request
+             and equal to solo calls bit for bit, and a load from a CPU
              loader's weight stream.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
@@ -257,6 +286,24 @@ MODEL_SPECS = [
     ("embedding", "embedding://"), ("transformer", "transformer://"),
     ("transformer", "transformer://d=64,heads=4,seq=128,layers=2"),
 ]
+# MoE transformers (experts > 0): the default widths with 8 experts, and
+# tests/test_models.py's grouped spec. Their routing is an argmax, so the
+# card's logits are compared with the CPU's where every token took the
+# same expert; a token that took another is reported with the CPU's top-2
+# probability margin, which must be a near-tie (MOE_TIE_MARGIN).
+MOE_SPECS = [
+    ("transformer", "transformer://experts=8"),
+    ("transformer",
+     "transformer://d=64,heads=4,seq=64,layers=2,experts=16,groups=8"),
+]
+MOE_TIE_MARGIN = 1e-3
+# Card against CPU for the MoE transformers, as (rtol, atol / max|ref|).
+# The reference rounds the experts' hidden activations to bf16 after an
+# f32 product (parallel/moe.py::_expert_ffn), so another summation order
+# (cuBLAS's) flips some of those roundings, each a bf16 ulp of a hidden
+# unit: looser than the dense transformers' 1e-4, ten times tighter than
+# the CPU tests' bf16-level 1e-2.
+MOE_TOL = (0.0, 1e-3)
 FUSED_GROUP = 8
 PREDICT_CALLS = 50
 DISPATCH_ROUNDS = 20
@@ -1353,12 +1400,12 @@ def reset_all_launches() -> None:
         mod.reset_launches()
 
 
-def steady_cycle(strat, fleet, dev) -> dict:
-    """One churn cycle: mark the churned models dirty, refresh
-    incrementally; the launch counters zeroed just before the refresh and
-    read just after."""
+def steady_cycle(strat, fleet, dev, dirty=None) -> dict:
+    """One churn cycle: mark the churned models (``dirty``, or a fresh
+    ``churn``) dirty, refresh incrementally; the launch counters zeroed
+    just before the refresh and read just after."""
     models, instances, rpm, _ = fleet
-    strat.mark_dirty(churn(fleet), [])
+    strat.mark_dirty(churn(fleet) if dirty is None else dirty, [])
     torch.cuda.synchronize(dev)
     reset_all_launches()
     syncs0 = device_mod.host_syncs
@@ -1619,6 +1666,233 @@ def phase_steady(dev, card: str) -> dict:
     return result
 
 
+PIPELINED_CYCLES = 6
+PIPELINED_MIN_INCREMENTAL = 4
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for name, n in got.items():
+        total[name] = total.get(name, 0) + n
+
+
+def pipelined_submit(refresher, fleet, dev, dirty, total: dict) -> dict:
+    """One pipelined submit (or, with ``dirty`` None, the drain): the churn
+    marked dirty, the launch counters zeroed just before and read just
+    after, the host syncs across it."""
+    models, instances, rpm, _ = fleet
+    strat = refresher.strategy
+    if dirty:
+        strat.mark_dirty(dirty, [])
+    torch.cuda.synchronize(dev)
+    reset_all_launches()
+    syncs0 = device_mod.host_syncs
+    t = time.perf_counter()
+    plan = (refresher.drain() if dirty is None
+            else refresher.submit(models, instances, rpm, incremental=True))
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = all_launches()
+    add_launches(total, launches)
+    flight = refresher._inflight
+    out = {"wall_ms": wall_ms, "host_syncs": device_mod.host_syncs - syncs0,
+           "launches": launches, "plan": plan,
+           "base_overflow": (strat._base.overflow
+                             if strat._base is not None else None)}
+    if flight is not None:
+        p = flight.pending
+        out.update(path=p.path, dirty_rows=p.dirty_rows,
+                   snapshot_ms=(p.t_snapshot - p.t_start) * 1e3,
+                   dispatch_ms=(p.t_dispatched - p.t_snapshot) * 1e3,
+                   generation=flight.generation)
+    if plan is not None:
+        out.update(emitted_generation=plan.generation,
+                   emitted_path=plan.stats["solver_path"],
+                   readback_wait_ms=plan.stats["readback_wait_ms"],
+                   overflow=plan.stats["overflow"],
+                   emitted_host_syncs=plan.stats["host_syncs"])
+    return out
+
+
+def pipelined_run(dev) -> dict:
+    """The main fleet (``steady_records``) twice from one seed, so both
+    refresh paths see the same churn, under the sparse pin and the steady
+    gates: a blocking strategy after a cold refresh, and a pipelined
+    refresher after its priming submit, then PIPELINED_CYCLES cycles of 1%
+    model churn, each cycle running both paths in turns (blocking first
+    on even cycles, pipelined first on odd ones, so host drift falls on
+    both alike), and the drain."""
+    from modelmesh_tpu_torch.placement.refresh_loop import PipelinedRefresher
+
+    blocking_fleet = steady_records(*MAIN_FLEET)
+    fleet = steady_records(*MAIN_FLEET)
+    models, instances, rpm, _ = blocking_fleet
+    total: dict = {}
+    blocking, cycles = [], []
+    with env_pin("MM_SOLVER_SPARSE", "1"):
+        strat = new_strategy(dev, 0.05)
+        strat.refresh(models, instances, rpm)
+        refresher = PipelinedRefresher(new_strategy(dev, 0.05))
+        prime = pipelined_submit(refresher, fleet, dev, [], total)
+        check(prime["plan"] is None, "pipelined: the priming submit "
+              "returned a plan")
+        for i in range(PIPELINED_CYCLES):
+            dirty_b, dirty_p = churn(blocking_fleet), churn(fleet)
+            check(dirty_b == dirty_p, "pipelined: the two fleets' churn "
+                  "differs")
+            turns = [
+                lambda: blocking.append(
+                    steady_cycle(strat, blocking_fleet, dev, dirty_b)),
+                lambda: cycles.append(
+                    pipelined_submit(refresher, fleet, dev, dirty_p, total)),
+            ]
+            for turn in (turns if i % 2 == 0 else turns[::-1]):
+                turn()
+        tail = pipelined_submit(refresher, fleet, dev, None, total)
+    return {"blocking": blocking, "prime": prime, "cycles": cycles,
+            "tail": tail, "launches": total}
+
+
+def check_pipelined(run: dict, demand: float) -> dict:
+    """Every generation emitted once and in order; each incremental cycle
+    (the flight it dispatched) with at most one host sync and kernel 4
+    and the implied load once each, nothing else; the emitted plans within
+    the base's overflow + 0.5% of demand; at least
+    PIPELINED_MIN_INCREMENTAL incremental cycles."""
+    cycles, tail = run["cycles"], run["tail"]
+    emitted = [c["emitted_generation"] for c in cycles + [tail]
+               if c["plan"] is not None]
+    first = run["prime"]["generation"]
+    check(emitted == list(range(first, first + len(cycles) + 1)),
+          f"pipelined: generations emitted {emitted}")
+    incr = [c for c in cycles if c["path"] == "incremental"]
+    check(len(incr) >= PIPELINED_MIN_INCREMENTAL,
+          f"pipelined: {len(incr)} of {len(cycles)} cycles incremental "
+          f"({[c['path'] for c in cycles]})")
+    for c in incr:
+        check(c["host_syncs"] <= 1,
+              f"pipelined: {c['host_syncs']} host syncs in an incremental "
+              "cycle")
+        want = dict.fromkeys(c["launches"], 0)
+        want.update(row_lse_partial=1, implied_load=1)
+        check(c["launches"] == want, f"pipelined: launches in an "
+              f"incremental cycle {c['launches']}, want {want}")
+    for c in cycles + [tail]:
+        if c["plan"] is None:
+            continue
+        check(c["plan"].stats["pipelined"] is True,
+              "pipelined: a plan not marked pipelined")
+        if c["emitted_path"] == "incremental":
+            check(c["base_overflow"] is not None
+                  and c["overflow"] <= c["base_overflow"] + 0.005 * demand,
+                  f"pipelined: plan overflow {c['overflow']} past the "
+                  f"base's {c['base_overflow']} + 0.5% of demand")
+    for name in ("select_candidates", "masked_sinkhorn_step",
+                 "masked_row_matvec", "row_lse_partial", "implied_load"):
+        check(run["launches"].get(name, 0) > 0,
+              f"pipelined: {name} was not launched")
+
+    def keep(c):
+        return {k: v for k, v in c.items() if k != "plan"}
+
+    blocking_wall = [c["wall_ms"] for c in run["blocking"]]
+    pipelined_wall = [c["wall_ms"] for c in cycles]
+    # Cycle by cycle, the pipelined submit less the blocking refresh, on
+    # the cycles whose pipelined flight is incremental.
+    paired = [p["wall_ms"] - b["wall_ms"]
+              for p, b in zip(cycles, run["blocking"])
+              if p["path"] == "incremental"]
+    return {
+        "cycles": [keep(c) for c in cycles], "prime": keep(run["prime"]),
+        "drain": keep(tail),
+        "blocking_cycles": [
+            {"wall_ms": c["wall_ms"], "path": c["stats"]["solver_path"],
+             "dirty_rows": c["stats"].get("dirty_rows"),
+             "host_syncs": c["host_syncs"],
+             "solve_ms": c["stats"]["solve_ms"],
+             "snapshot_ms": c["stats"]["snapshot_ms"],
+             "extract_ms": c["stats"]["extract_ms"],
+             "readback_wait_ms": c["stats"]["readback_wait_ms"],
+             "dispatch_ms": c["stats"].get("dispatch_ms")}
+            for c in run["blocking"]],
+        "summary": {
+            "blocking_wall_ms": summary(blocking_wall),
+            "pipelined_wall_ms": summary(pipelined_wall),
+            "pipelined_wall_ms_incremental": summary(
+                [c["wall_ms"] for c in incr]),
+            "pipelined_less_blocking_ms": summary(paired),
+            "first": ["blocking" if i % 2 == 0 else "pipelined"
+                      for i in range(len(cycles))],
+            "blocking_paths": [c["stats"]["solver_path"]
+                               for c in run["blocking"]],
+            "pipelined_paths": [c["path"] for c in cycles],
+            "incremental_cycles": len(incr),
+            "readback_wait_ms": summary([c["readback_wait_ms"]
+                                         for c in cycles]),
+            "dispatch_ms_incremental": summary(
+                [c["dispatch_ms"] for c in incr]),
+        },
+        "launches_in_run": run["launches"],
+    }
+
+
+def pipelined_parity(dev) -> dict:
+    """The pipelined sequence at the parity fleet, PIPELINED_PARITY_CYCLES
+    churn cycles after a priming submit and then the drain, through a
+    CPU strategy (plain versions) and a CUDA one: the emitted plans' paths
+    equal; on the drained plans agreement >= 0.97 and overflow within
+    0.5% of demand."""
+    from modelmesh_tpu_torch.placement.refresh_loop import PipelinedRefresher
+
+    fleet = steady_records(*PARITY_FLEET)
+    models, instances, rpm, _ = fleet
+    demand = demand_of(snapshot_columns(models, instances, rpm))
+    refs = {"cpu": PipelinedRefresher(new_strategy("cpu", 0.05)),
+            "gpu": PipelinedRefresher(new_strategy(dev, 0.05))}
+    paths = {k: [] for k in refs}
+    with env_pin("MM_SOLVER_SPARSE", "1"):
+        for r in refs.values():
+            r.submit(models, instances, rpm)
+        for _ in range(STEADY_PARITY_CYCLES):
+            dirty = churn(fleet)
+            for k, r in refs.items():
+                r.strategy.mark_dirty(dirty, [])
+                plan = r.submit(models, instances, rpm)
+                paths[k].append(plan.stats["solver_path"])
+        plans = {k: r.drain() for k, r in refs.items()}
+    for k, plan in plans.items():
+        paths[k].append(plan.stats["solver_path"])
+    check(paths["cpu"] == paths["gpu"],
+          f"pipelined parity: paths differ {paths}")
+    check("incremental" in paths["gpu"],
+          f"pipelined parity: no incremental cycle {paths}")
+    gpu, cpu = plans["gpu"], plans["cpu"]
+    agree = float(np.mean([gpu.lookup(mid) == cpu.lookup(mid)
+                           for mid, _ in models]))
+    d_over = abs(gpu.stats["overflow"] - cpu.stats["overflow"])
+    check(agree >= 0.97, f"pipelined parity: GPU/CPU agreement {agree}")
+    check(d_over <= 0.005 * demand,
+          f"pipelined parity: overflow differs by {d_over}")
+    return {"models": PARITY_FLEET[0], "instances": PARITY_FLEET[1],
+            "cycles": STEADY_PARITY_CYCLES, "paths": paths,
+            "agreement": agree, "overflow_diff_frac": d_over / demand}
+
+
+def phase_pipelined(dev, card: str) -> dict:
+    """The pipelined steady refresh (``placement/refresh_loop.py``) at the
+    main fleet beside the blocking one on identical churn, then GPU/CPU
+    parity of the pipelined sequence."""
+    models, instances, rpm, _ = steady_records(*MAIN_FLEET)
+    demand = demand_of(snapshot_columns(models, instances, rpm))
+    run = pipelined_run(dev)
+    result = {"phase": "pipelined", "card": card, "models": MAIN_FLEET[0],
+              "instances": MAIN_FLEET[1],
+              "churn_per_cycle": MAIN_FLEET[0] // 100,
+              **check_pipelined(run, demand),
+              "parity": pipelined_parity(dev)}
+    emit(result)
+    emit({"phase": "pipelined_summary", **result["summary"]})
+    return result
+
+
 def random_ops():
     """The threefry wrappers, imported where a phase needs them (as
     ``load_ops``)."""
@@ -1768,6 +2042,51 @@ def check_close(got: np.ndarray, want: np.ndarray, tol, what: str) -> float:
     return err
 
 
+@contextlib.contextmanager
+def moe_routes():
+    """Record the port's MoE routing while the block runs: per ``_route``
+    call, its device, each token's expert (-1 when dropped) and the
+    top-2 probability margin."""
+    from modelmesh_tpu_torch.parallel import moe
+
+    rec = []
+    route = moe._route
+
+    def recording(x, router, n_experts, capacity):
+        dispatch, gate = route(x, router, n_experts, capacity)
+        top2 = torch.softmax(x.float() @ router.float(), -1).topk(2).values
+        kept = dispatch.sum((1, 2)) > 0
+        expert = torch.where(kept, dispatch.sum(2).argmax(1), -1)
+        rec.append((x.device.type, expert.cpu().numpy(),
+                    (top2[:, 0] - top2[:, 1]).cpu().numpy()))
+        return dispatch, gate
+
+    moe._route = recording
+    try:
+        yield rec
+    finally:
+        moe._route = route
+
+
+def moe_flips(card_rec: list, cpu_rec: list, path: str) -> list:
+    """The tokens whose expert differs between the card's and the CPU's
+    routing, with the CPU's top-2 margin; each must be a near-tie."""
+    check(len(card_rec) == len(cpu_rec) and len(cpu_rec) > 0,
+          f"{path}: {len(card_rec)} / {len(cpu_rec)} routing calls")
+    flips = []
+    for call, ((_, e_gpu, _), (_, e_cpu, margin)) in enumerate(
+            zip(card_rec, cpu_rec)):
+        for tok in np.nonzero(e_gpu != e_cpu)[0]:
+            flips.append({"call": call, "token": int(tok),
+                          "card": int(e_gpu[tok]), "cpu": int(e_cpu[tok]),
+                          "margin": float(margin[tok])})
+    first = [f for f in flips if f["call"] == flips[0]["call"]] if flips \
+        else []
+    check(all(f["margin"] < MOE_TIE_MARGIN for f in first),
+          f"{path}: routing differs away from a near-tie {first}")
+    return flips
+
+
 def serve_families(dev, card: str) -> dict:
     """The gRPC runtime on the card, driven through the port's own stub:
     status, then per family load (timed), weights against a CPU build
@@ -1796,7 +2115,7 @@ def serve_families(dev, card: str) -> dict:
               f"runtime status {status}")
         predict = grpc_defs.raw_method(channel, PREDICT_METHOD)
         served = {}
-        for family, path in MODEL_SPECS:
+        for family, path in MODEL_SPECS + MOE_SPECS:
             mid = f"smoke-{path}"
             info = rpb.ModelInfo(model_type=family, model_path=path)
             t = time.perf_counter()
@@ -1815,10 +2134,20 @@ def serve_families(dev, card: str) -> dict:
                   f"{path}: weights on the card differ from the CPU build")
             md = ((grpc_defs.MODEL_ID_HEADER, mid),)
             x = model_input(cpu, 4, SEED)
-            out = np.frombuffer(predict(x.tobytes(), metadata=md,
-                                        timeout=60), np.float32)
-            want = cpu.run(x).reshape(-1)
-            err = check_close(out, want, MODEL_TOL[family], path)
+            moe = (family, path) in MOE_SPECS
+            with moe_routes() as rec:
+                out = np.frombuffer(predict(x.tobytes(), metadata=md,
+                                            timeout=60), np.float32)
+                card_rec = list(rec)
+                rec.clear()
+                want = cpu.run(x).reshape(-1)
+            flips = moe_flips(card_rec, rec, path) if moe else []
+            # A token routed to another expert takes another FFN: the
+            # logits are compared only where routing agrees.
+            err = (None if flips
+                   else check_close(out, want,
+                                    MOE_TOL if moe else MODEL_TOL[family],
+                                    path))
             one = model_input(cpu, 1, SEED + 1).tobytes()
             lat = []
             for _ in range(PREDICT_CALLS):
@@ -1837,6 +2166,13 @@ def serve_families(dev, card: str) -> dict:
                 "predict_ms_median": float(np.median(lat)),
                 "predict_ms_max": float(np.max(lat)),
             }
+            if moe:
+                served[path].update(
+                    batch_safe=model.batch_safe,
+                    routing_calls=len(card_rec),
+                    tokens_routed=int(sum(len(r[1]) for r in card_rec)),
+                    routing_flips=flips)
+                check(not model.batch_safe, f"{path}: batch_safe")
         return {"runtime_version": status.runtime_version,
                 "device_memory_bytes": status.device_memory_bytes,
                 "families": served}
@@ -1947,6 +2283,28 @@ def batch_on_card(dev) -> dict:
         }
         check(ld.store.fused_fallbacks == 0,
               f"{family}: fused dispatch fell back")
+    # MoE: a same-model batch of 2 requests and a batch across two MoE
+    # models of one architecture run per request, never fused, and equal
+    # solo calls bit for bit.
+    family, path = MOE_SPECS[0]
+    for mid in ("moe-a", "moe-b"):
+        ld.load(mid, ModelInfo(family, path))
+    rep = ld.store.get("moe-a")
+    check(ld.batch_group_key("moe-a") == "moe-a",
+          "moe: the model shares a batch key")
+    pls = [model_input(rep, 1 + i, SEED + 40 + i).tobytes() for i in (0, 1)]
+    ld.store.fused_dispatches = ld.store.fused_fallbacks = 0
+    same = ld.call_model_batch([BatchItem("moe-a", payload=p) for p in pls])
+    cross = ld.call_model_batch([BatchItem("moe-a", payload=pls[0]),
+                                 BatchItem("moe-b", payload=pls[1])])
+    check(ld.store.fused_dispatches == 0, "moe: a batch was fused")
+    check(same == [ld.call_model("moe-a", "", p) for p in pls]
+          and cross == [ld.call_model("moe-a", "", pls[0]),
+                        ld.call_model("moe-b", "", pls[1])],
+          "moe: a batch differs from its solo calls")
+    out["moe_batch"] = {"spec": path, "requests": len(pls),
+                        "fused_dispatches": ld.store.fused_dispatches,
+                        "bitwise_vs_solo": True}
     cpu = InProcessTorchLoader(capacity_bytes=64 << 20, device="cpu")
     cpu.load("streamed", mlp)
     got = ld.load_from_stream("streamed", mlp,
@@ -2022,6 +2380,7 @@ def main() -> int:
     phase_parity(dev, DENSE_PARITY_FLEET, "dense_parity", "dense")
     dense_wide_launches = phase_dense_wide(dev)
     steady = phase_steady(dev, card)
+    pipelined = phase_pipelined(dev, card)
     threefry = phase_threefry(dev, card, cols)
     phase_models(dev, card)
     print(card)
@@ -2065,13 +2424,16 @@ def main() -> int:
     threefry_entries = kernel_entries(
         {"threefry_gumbel": threefry["threefry_gumbel"]}, "threefry",
         threefry["launches"], {"threefry_gumbel": ("threefry", 1)})
-    emit({"kernels": (
-        kernel_entries(kernels, "masked_sparse", sparse_launches,
-                       sparse_cells)
-        + lse_entries
-        + load_entries
-        + threefry_entries
-    )})
+    entries = (kernel_entries(kernels, "masked_sparse", sparse_launches,
+                              sparse_cells)
+               + lse_entries + load_entries + threefry_entries)
+    # The pipelined refresher's run (priming submit, cycles, drain) drives
+    # the sparse kernels on its full cycles and kernel 4 and the implied
+    # load on its incremental ones.
+    for entry in entries:
+        entry["pipelined_launches"] = pipelined["launches_in_run"].get(
+            entry["name"], 0)
+    emit({"kernels": entries})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -8,12 +8,19 @@ version.
 
 The solve's convergence gates are Python control flow on 0-d device
 tensors, and each decision is a host sync (the stream drains before the
-value reaches Python). ``item`` and ``readback`` are the only ways the
-solve path moves a value to the host, and ``host_syncs`` counts them so a
-run can report syncs per solve.
+value reaches Python). ``item`` and ``finish_readback`` are the only ways
+the solve path moves a value to the host, and ``host_syncs`` counts them
+so a run can report syncs per solve.
+
+A readback is split in two: ``start_readback`` enqueues the copy behind
+the work already on the tensor's stream and returns at once, and
+``finish_readback`` waits for that copy alone. Work enqueued between the
+two (the next solve) is not waited for.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,8 +63,33 @@ def item(t: torch.Tensor):
     return t.item()
 
 
-def readback(t: torch.Tensor) -> torch.Tensor:
-    """``t`` copied to host memory, counted as one host sync."""
+class Readback(NamedTuple):
+    """A copy to host memory in flight: ``host`` holds the bytes once
+    ``done`` (recorded after the copy) has completed; ``done`` is None
+    when the source was already on the host."""
+
+    host: torch.Tensor
+    done: Optional[torch.cuda.Event]
+
+
+def start_readback(t: torch.Tensor) -> Readback:
+    """Enqueue ``t``'s copy to host memory without waiting: a pinned
+    buffer, a non-blocking copy on the current stream of ``t``'s device
+    and an event recorded after it. A CPU tensor is its own copy."""
+    if t.device.type != "cuda":
+        return Readback(t, None)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return Readback(host, done)
+
+
+def finish_readback(rb: Readback) -> torch.Tensor:
+    """Wait for ``rb``'s copy (and only for the work enqueued before it),
+    counted as one host sync; the host tensor."""
     global host_syncs
     host_syncs += 1
-    return t.cpu()
+    if rb.done is not None:
+        rb.done.synchronize()
+    return rb.host

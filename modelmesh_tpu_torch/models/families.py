@@ -27,8 +27,11 @@ variance; gelu is the tanh form (``jax.nn.gelu``'s default); the conv
 pads "SAME" at stride 2 asymmetrically, as XLA does.
 
 One device: ``sp`` and ``ep`` run the dense path, as the reference does
-when it sees one device. MoE transformers (``experts > 0``) are not
-ported and raise.
+when it sees one device. A transformer with ``experts=E`` takes the MoE
+FFN in each block (``parallel/moe.py``): its weights are drawn as the
+reference's, and on one device it runs the dense oracle
+``reference_moe`` with ``groups`` routing shards. Its routing couples the
+rows of a batch, so it is not ``batch_safe``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 
 from modelmesh_tpu_torch import random as prng
 from modelmesh_tpu_torch.device import resolve_device
+from modelmesh_tpu_torch.parallel.moe import init_moe_params, reference_moe
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
@@ -387,7 +391,8 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
     """Tiny causal transformer LM: int32 token payload -> next-token logits.
 
     Learned embeddings, pre-LN blocks with causal self-attention + gelu
-    MLP, weight-tied f32 readout of the last position; f32 attention
+    MLP (or, with ``experts=E``, the MoE FFN routed in ``groups`` token
+    shards), weight-tied f32 readout of the last position; f32 attention
     softmax cast to bf16."""
     vocab = spec.params.get("vocab", 256)
     d = spec.params.get("d", 128)
@@ -401,11 +406,6 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
         raise ValueError(
             f"transformer spec: groups={moe_groups} must divide "
             f"seq={seq} (MoE routing capacity is per token-shard)"
-        )
-    if n_experts:
-        raise NotImplementedError(
-            "transformer experts > 0 (MoE FFN): not ported "
-            "(ROADMAP queue 1 item 4, with parallel/moe.py)"
         )
     key = prng.PRNGKey(_seed_from(spec, model_id))
 
@@ -422,11 +422,14 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
     }
     for layer in range(n_layers):
         k = keys[2 + 6 * layer: 8 + 6 * layer]
+        if n_experts:
+            ffn = {"moe": init_moe_params(k[2], d, 4 * d, n_experts)}
+        else:
+            ffn = {"up": dense(k[2], d, 4 * d), "down": dense(k[3], 4 * d, d)}
         params["blocks"].append({
             "qkv": dense(k[0], d, 3 * d),
             "proj": dense(k[1], d, d),
-            "up": dense(k[2], d, 4 * d),
-            "down": dense(k[3], 4 * d, d),
+            **ffn,
             "ln1": torch.ones((d,), dtype=_BF16),
             "ln2": torch.ones((d,), dtype=_BF16),
         })
@@ -454,7 +457,12 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
             z = z.transpose(1, 2).reshape(b, t, d)
             h = _add(h, _mm(z, blk["proj"]))
             x = _layer_norm(h, blk["ln2"])
-            h = _add(h, _mm(_gelu(_mm(x, blk["up"])), blk["down"]))
+            if "moe" in blk:
+                y = reference_moe(blk["moe"], x.reshape(b * t, d),
+                                  n_experts, n_dev=moe_groups)
+                h = _add(h, y.reshape(b, t, d).to(h.dtype))
+            else:
+                h = _add(h, _mm(_gelu(_mm(x, blk["up"])), blk["down"]))
         return h[:, -1].to(_F32) @ params["embed"].T.to(_F32)
 
     return ServableModel(apply, params, (seq,), np.int32)
@@ -503,8 +511,8 @@ def build_model(model_id: str, model_type: str, model_path: str,
     model.params = map_tree(lambda t: t.to(device), model.params)
     model.family = spec.family
     model.fuse_key = fuse_key_for(spec)
-    # MoE transformers (not ported) would be batch-coupled; the rule is
-    # the reference's.
+    # MoE routing couples the rows of a batch (capacity per token group);
+    # the rule is the reference's.
     model.batch_safe = not (
         spec.family == "transformer" and spec.params.get("experts", 0) > 0
     )

@@ -17,9 +17,13 @@ authoritative.
 Differences from the reference: the solve's convergence gates run on the
 host, so ``dispatch_solve`` returns after the solve's last gate decision
 (only the tail of the solve is still in flight; the incremental path has
-no gates); every host sync on the path is counted (``device.host_syncs``)
-and reported per solve in ``plan.stats["host_syncs"]``. Meshes and buffer
-donation are not ported and raise; the device ``carry`` is accepted.
+no gates). The dispatch enqueues the result's copy to pinned host memory
+behind the solve, and ``finalize_plan`` waits on that copy's event, so it
+does not wait for a solve dispatched after it (the pipelined refresher,
+``placement/refresh_loop.py``). Every host sync on the path is counted
+(``device.host_syncs``) and reported per solve in
+``plan.stats["host_syncs"]``. Meshes and buffer donation are not ported
+and raise; the device ``carry`` is accepted.
 """
 
 from __future__ import annotations
@@ -740,7 +744,10 @@ class GlobalPlan:
 
 class PendingSolve(NamedTuple):
     """A dispatched, not yet finalized solve (``sol`` holds device
-    tensors; the tail of the solve may still be running)."""
+    tensors; the tail of the solve may still be running). ``readback`` is
+    its result's copy to the host, enqueued behind the solve at dispatch:
+    finalizing waits for this solve only, not for one dispatched after
+    it."""
 
     cols: ProblemColumns
     sol: object          # ops.solve.Placement
@@ -754,8 +761,11 @@ class PendingSolve(NamedTuple):
     # incremental one (the row LSE).
     impl_knob: str = "sparse_impl"
     impl: str = "cuda"
-    syncs_at_start: int = 0     # device.host_syncs when dispatch began
+    dispatch_syncs: int = 0     # host syncs the dispatch made
     dirty_rows: Optional[int] = None  # rows re-solved (incremental only)
+    t_dispatched: Optional[float] = None  # perf_counter when dispatch returned
+    # None: finalize_plan enqueues the readback itself.
+    readback: Optional[device_mod.Readback] = None
 
 
 def dispatch_solve(
@@ -824,8 +834,10 @@ def dispatch_solve(
         return PendingSolve(
             cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
             warm=True, path="incremental", topk=cfg.topk,
-            impl_knob="lse_impl", impl=impl, syncs_at_start=syncs0,
-            dirty_rows=len(d),
+            impl_knob="lse_impl", impl=impl,
+            dispatch_syncs=device_mod.host_syncs - syncs0,
+            dirty_rows=len(d), readback=_enqueue_readback(sol),
+            t_dispatched=time.perf_counter(),
         )
 
     if sparse:
@@ -862,7 +874,8 @@ def dispatch_solve(
         path="sparse" if sparse else "dense",
         topk=cfg.topk if sparse else 0,
         impl_knob=impl_knob, impl=impl,
-        syncs_at_start=syncs0,
+        dispatch_syncs=device_mod.host_syncs - syncs0,
+        readback=_enqueue_readback(sol), t_dispatched=time.perf_counter(),
     )
 
 
@@ -874,28 +887,41 @@ def _compact_result(sol) -> torch.Tensor:
     return torch.cat([sol.indices.to(torch.int32), cnt[:, None]], dim=1)
 
 
+def _enqueue_readback(sol) -> device_mod.Readback:
+    """The cycle's one readback, enqueued behind the solve: the packed
+    int32 plan (indices + valid counts) followed by the f32 overflow,
+    row_err and (when the solve has them) g and prices, carried in the
+    same int32 buffer bit for bit."""
+    floats = [sol.overflow.reshape(1), sol.row_err.reshape(1)]
+    if sol.g is not None and sol.prices is not None:
+        floats += [sol.g, sol.prices]
+    return device_mod.start_readback(torch.cat([
+        _compact_result(sol).reshape(-1),
+        torch.cat([t.to(torch.float32) for t in floats]).view(torch.int32),
+    ]))
+
+
 def finalize_plan(
     pending: PendingSolve, fetch_carries: bool = True
 ) -> GlobalPlan:
-    """Read the solve back and pack it into a GlobalPlan.
+    """Wait for the solve's readback and pack it into a GlobalPlan.
 
-    One readback per cycle, as the reference's one batched ``device_get``:
-    the packed int32 plan (indices + valid counts) followed by the f32
-    values (overflow, row_err and, with ``fetch_carries``, g and prices)
-    carried in the same int32 buffer bit for bit. The iteration counts are
-    already on the host. ``solve_ms`` runs from the end of the snapshot to
-    the end of the readback."""
+    One readback per cycle, as the reference's one batched ``device_get``
+    (``_enqueue_readback``); waiting for it is the cycle's last host sync
+    and waits for this solve only. The iteration counts are already on the
+    host. ``fetch_carries`` decides whether the plan's ``warm_g`` /
+    ``warm_price`` dicts are built from the g and prices in the buffer.
+    ``solve_ms`` runs from the end of the snapshot to the end of the
+    wait, ``dispatch_ms`` to the dispatch's return, and
+    ``readback_wait_ms`` is the wait alone."""
     cols, sol = pending.cols, pending.sol
     m_pad = sol.load.shape[0]
-    floats = [sol.overflow.reshape(1), sol.row_err.reshape(1)]
-    if fetch_carries:
-        floats += [sol.g, sol.prices]
-    plan_dev = _compact_result(sol)
-    rows, width = plan_dev.shape
-    host = device_mod.readback(torch.cat([
-        plan_dev.reshape(-1),
-        torch.cat([t.to(torch.float32) for t in floats]).view(torch.int32),
-    ])).numpy()
+    rows, width = sol.indices.shape[0], sol.indices.shape[1] + 1
+    rb = pending.readback
+    if rb is None:
+        rb = _enqueue_readback(sol)
+    t_wait = time.perf_counter()
+    host = device_mod.finish_readback(rb).numpy()
     packed = host[:rows * width].reshape(rows, width)
     scalars = host[rows * width:].view(np.float32)
     t2 = time.perf_counter()
@@ -918,6 +944,7 @@ def finalize_plan(
         "snapshot_ms": (pending.t_snapshot - pending.t_start) * 1e3,
         "solve_ms": (t2 - pending.t_snapshot) * 1e3,
         "extract_ms": (t3 - t2) * 1e3,
+        "readback_wait_ms": (t2 - t_wait) * 1e3,
         "warm": pending.warm,
         "solver_path": pending.path,
         pending.impl_knob: pending.impl,
@@ -925,13 +952,17 @@ def finalize_plan(
         "row_err": float(scalars[1]),
         "sinkhorn_iters_run": sol.sinkhorn_iters_run,
         "auction_iters_run": sol.auction_iters_run,
-        "host_syncs": device_mod.host_syncs - pending.syncs_at_start,
+        # The dispatch's syncs and the readback's wait.
+        "host_syncs": pending.dispatch_syncs + 1,
     }
+    if pending.t_dispatched is not None:
+        plan.stats["dispatch_ms"] = (
+            pending.t_dispatched - pending.t_snapshot) * 1e3
     if pending.topk:
         plan.stats["topk"] = pending.topk
     if pending.dirty_rows is not None:
         plan.stats["dirty_rows"] = pending.dirty_rows
-    if fetch_carries:
+    if fetch_carries and len(scalars) == 2 + 2 * m_pad:
         m = len(cols.instance_ids)
         g_arr = scalars[2:2 + m_pad][:m]
         p_arr = scalars[2 + m_pad:][:m]

@@ -23,7 +23,10 @@ so the port reproduces:
 - ``normal``: ``sqrt(2) * erf_inv(u)`` over ``u`` uniform in
   ``(nextafter(-1, 0), 1)``; bf16 takes ``torch.erfinv`` in f32 rounded to
   bf16 (a bf16 uniform takes 128 values, and on all of them this equals
-  XLA), f32 XLA's own polynomial (M. Giles) with its fused multiply-adds;
+  XLA), f32 XLA's own polynomial (M. Giles) with its fused multiply-adds,
+  over XLA's CPU ``log1p`` (Cephes' rational form below sqrt(2) - 1,
+  Cephes' ``logf`` of ``1 + x`` above, with the multiply-adds XLA's
+  compiler fuses) and a correctly rounded square root;
 - ``gumbel``: ``-log(-log(u))``, ``u`` uniform in ``[tiny, 1)`` (f32).
 
 Arithmetic is on int64 tensors holding uint32 values, masked to 32 bits
@@ -52,6 +55,23 @@ _ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
               -0.00367342844, 0.00573950773, -0.0076224613,
               0.00943887047, 1.00167406, 2.83297682)
+# XLA's CPU log1p in f32: the Cephes rational approximation P(x)/Q(x)
+# (coefficients lowest degree last) for |x| < sqrt(2) - 1, and Cephes'
+# logf of 1 + x above it: the mantissa's polynomial, then the exponent
+# times ln 2 split in two.
+_LOG1P_SMALL = 0.41421356237309504880
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOGF_SQRTHF = 0.707106781186547524
+_LOGF_POLY = ((7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1),
+              (-1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1),
+              (2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1))
+_LOGF_LN2_LO, _LOGF_LN2_HI = -2.12194440e-4, 0.693359375
 # (random bits drawn, mantissa bits, the bit pattern of 1.0, the int dtype
 # of the same width) of each float dtype a uniform can be drawn in. JAX
 # draws at least 8 bits: a bf16 uniform takes 8 and drops the lowest.
@@ -148,21 +168,67 @@ def uniform(key: torch.Tensor, shape, dtype=torch.float32,
     return torch.maximum(lo, scaled.float())
 
 
+def _f32(v: float) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once: the product of two f32 values is
+    exact in f64."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def _logf(v: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log (Cephes' ``logf``), with the multiply-adds its
+    compiler fuses. Zero gives -inf, inf gives inf, below zero NaN."""
+    tiny = _f32(torch.finfo(torch.float32).tiny)
+    bits = torch.where(v > tiny, v, tiny).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < _f32(_LOGF_SQRTHF)
+    xm = (m - 1.0) + torch.where(low, m, _f32(0.0))
+    e = e - low.to(torch.float32)
+    z = xm * xm
+    x3 = z * xm
+    y1, y2, y3 = (_fma(_fma(xm, _f32(a), _f32(b)), xm, _f32(c))
+                  for a, b, c in _LOGF_POLY)
+    y = _fma(_fma(y1, x3, y2), x3, y3)
+    y = _fma(y, x3, e * _f32(_LOGF_LN2_LO))
+    r = _fma(e, _f32(_LOGF_LN2_HI), (xm - z * 0.5) + y)
+    r = torch.where(v > 0, r, _f32(math.nan))
+    r = torch.where(v == math.inf, _f32(math.inf), r)
+    return torch.where(v == 0, _f32(-math.inf), r)
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU f32 log1p: the rational form below sqrt(2) - 1, else
+    ``_logf(1 + x)``."""
+    x2 = x * x
+    num = _f32(_LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        num = _fma(num, x, _f32(c))
+    den = _f32(_LOG1P_Q[0])
+    for c in _LOG1P_Q[1:]:
+        den = _fma(den, x, _f32(c))
+    small = x + _fma(x2, _f32(-0.5), (x * x2) * (num / den))
+    return torch.where(x.abs() < _f32(_LOG1P_SMALL), small,
+                       _logf(x + 1.0))
+
+
 def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's f32 erf_inv: Giles' polynomial in w = -log1p(-x*x), each
-    step a fused multiply-add (here p*w exact in f64, one rounding).
-    ``log1p`` is PyTorch's, not XLA's: the two differ in the last bit on
-    a few inputs, so this matches XLA on most values, within 2 ulp on the
-    rest."""
-    w = -torch.log1p(-x * x)
+    step a fused multiply-add, over XLA's log1p and a correctly rounded
+    square root (f64, rounded once; PyTorch's vectorized f32 ``sqrt`` on
+    the CPU is not always)."""
+    w = -_log1p_f32(-x * x)
     low = w < 5.0
-    w = torch.where(low, w - 2.5, torch.sqrt(w) - 3.0).double()
+    w = torch.where(low, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = None
     for a, b in zip(_ERFINV_LO, _ERFINV_HI):
-        c = torch.where(low, torch.tensor(a, dtype=torch.float32),
-                        torch.tensor(b, dtype=torch.float32)).double()
-        p = c if p is None else (p * w + c).float().double()
-    out = p.float() * x
+        c = torch.where(low, _f32(a), _f32(b))
+        p = c if p is None else _fma(p, w, c)
+    out = p * x
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 
 

@@ -42,6 +42,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(got["modules"]) >= 14, got["modules"]
+    assert {"modelmesh_tpu_torch.parallel.moe",
+            "modelmesh_tpu_torch.placement.refresh_loop"} <= set(
+                got["modules"])
     assert got["leaked"] == []
     assert got["libs"] == []
 

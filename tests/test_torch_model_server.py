@@ -351,8 +351,10 @@ def test_loader_spi_round_trip():
         ld.call_model("c", "", b"")
     with pytest.raises(spi.ModelLoadException, match="unknown model family"):
         ld.load("r", ModelInfo("resnet", "resnet://"))
-    with pytest.raises(spi.ModelLoadException, match="NotImplementedError"):
-        ld.load("moe", ModelInfo("transformer", "transformer://experts=2"))
+    # A spec error of an MoE transformer fails the load the same way.
+    with pytest.raises(spi.ModelLoadException, match="groups=3 must divide"):
+        ld.load("moe", ModelInfo("transformer",
+                                 "transformer://seq=8,experts=4,groups=3"))
 
 
 def _stream_bytes(chunks) -> dict:
@@ -450,6 +452,31 @@ def test_shard_load_export_and_stream():
 
 
 # -- the serving core on the port's runtime ---------------------------------
+
+def test_moe_transformer_batches_per_request_bitwise():
+    """``tests/test_batching.py``'s MoE case on the port's loader: MoE
+    routing couples the rows of a batch (capacity per token group), so
+    the store runs each request alone inside a batch, never fused, and
+    the results equal solo calls bit for bit."""
+    moe = ModelInfo(
+        "transformer",
+        "transformer://vocab=64,d=32,layers=1,heads=2,seq=8,experts=4")
+    ld = ts.InProcessTorchLoader(capacity_bytes=1 << 28, device="cpu")
+    ld.load("p-moe-a", moe)
+    ld.load("p-moe-b", moe)
+    assert ld.store.get("p-moe-a").batch_safe is False
+    assert ld.batch_group_key("p-moe-a") == "p-moe-a"
+    pls = _payloads((1, 3, 2), width=8, ints=64)
+    sequential = [ld.call_model("p-moe-a", "", p) for p in pls]
+    batched = ld.call_model_batch(
+        [BatchItem("p-moe-a", payload=p) for p in pls])
+    assert batched == sequential
+    out = ld.call_model_batch([BatchItem("p-moe-a", payload=pls[0]),
+                               BatchItem("p-moe-b", payload=pls[1])])
+    assert out[0] == ld.call_model("p-moe-a", "", pls[0])
+    assert out[1] == ld.call_model("p-moe-b", "", pls[1])
+    assert ld.store.fused_dispatches == 0
+
 
 def test_instance_with_inprocess_torch_loader():
     """``tests/test_models.py``'s mesh-instance case, on the port's

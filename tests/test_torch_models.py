@@ -9,7 +9,8 @@ against the JAX package's, on the CPU.
   family's tolerance (``FORWARD_TOL``, beside the largest error measured
   over model ids m1/m2/other and batches of 1 and 4 rows).
 - Spec parsing, ``fuse_key_for``, ``predict_size_estimate``, the
-  ``example`` alias, ``sp``/``ep`` on one device, the ``experts`` refusal.
+  ``example`` alias, ``sp``/``ep`` on one device, the MoE spec check
+  (the MoE transformer itself: ``tests/test_torch_moe.py``).
 """
 
 import jax
@@ -36,6 +37,9 @@ SPECS = {
     "example": ["", "example://in=4,out=2"],
 }
 CASES = [(fam, path) for fam, paths in SPECS.items() for path in paths]
+MOE_CASES = [("transformer",
+              "transformer://vocab=64,d=32,layers=1,heads=2,seq=8,experts=4"),
+             ("transformer", "transformer://experts=8")]
 # Forward tolerance per family, as (rtol, atol / max|ref|), beside the
 # largest |port - reference| / max|ref| measured over this file's inputs.
 # mlp and linear run their products in f32 (the reference promotes them):
@@ -73,7 +77,7 @@ def _inputs(model, n: int, seed: int = 1) -> np.ndarray:
 
 
 @pytest.mark.parametrize("mid", ["m1", "other"])
-@pytest.mark.parametrize("family,path", CASES)
+@pytest.mark.parametrize("family,path", CASES + MOE_CASES)
 def test_initial_weights_byte_identical(family, path, mid):
     jm = jf.build_model(mid, family, path)
     tm = tf.build_model(mid, family, path, device="cpu")
@@ -168,14 +172,20 @@ def test_sp_and_ep_run_the_dense_path_on_one_device():
 
 
 def test_experts_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tf.build_model("t", "transformer",
-                       "transformer://vocab=64,d=32,seq=8,experts=4",
-                       device="cpu")
-    # The reference's spec check comes first.
+    """The spec check of an MoE transformer: a group count that does not
+    divide ``seq`` is refused, as the reference refuses it. (``experts >
+    0`` itself was refused before the MoE FFN was ported; it now builds,
+    with the MoE FFN in every block and ``batch_safe`` False.)"""
     with pytest.raises(ValueError, match="groups=3 must divide"):
         tf.build_model("t", "transformer",
                        "transformer://seq=8,experts=4,groups=3", device="cpu")
+    m = tf.build_model("t", "transformer",
+                       "transformer://vocab=64,d=32,seq=8,experts=4",
+                       device="cpu")
+    assert m.batch_safe is False
+    assert all(set(blk) == {"qkv", "proj", "moe", "ln1", "ln2"}
+               for blk in m.params["blocks"])
+    assert m.run(np.zeros((1, 8), np.int32)).shape == (1, 64)
 
 
 def test_unknown_family_refused():

@@ -3,15 +3,14 @@
 
 Bitwise: ``PRNGKey``, ``split``, the 8-, 16- and 32-bit ``random_bits``,
 ``uniform`` in f32 and bf16 over several ranges, the bf16 ``normal`` (on
-every one of the 128 values a bf16 uniform takes, too) and the uniforms
-under ``gumbel``; at seeds 0, 7, the solver's int32 seeds (negative and
-2**31 - 1), crc32 seeds above 2**31, and shapes with odd sizes.
+every one of the 128 values a bf16 uniform takes, too), the f32
+``normal`` (XLA's erf_inv over XLA's CPU ``log1p``, which the port
+reproduces: the MoE router draws it) and the uniforms under ``gumbel``;
+at seeds 0, 7, the solver's int32 seeds (negative and 2**31 - 1), crc32
+seeds above 2**31, and shapes with odd sizes.
 
-Within a tolerance, each stated where it is checked: the f32 ``normal``
-(XLA's erf_inv polynomial, but PyTorch's ``log1p``: the last bit differs
-on about 1% of values; no model or solve draws it) and ``gumbel``
-(PyTorch's ``log`` against XLA's: 2e-4, the tolerance of the port's hash
-Gumbel tests). The kernel
+Within a tolerance: ``gumbel`` (PyTorch's ``log`` against XLA's: 2e-4,
+the tolerance of the port's hash Gumbel tests). The kernel
 (``ops/cuda_random.py``) is held bitwise against this plain version on
 the card by ``chip_smoke.py``; here its wrapper takes the plain route for
 the CPU and refuses other devices.
@@ -132,9 +131,8 @@ def test_normal_bf16_every_reachable_uniform():
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("shape", SHAPES + [(4096,)])
 def test_normal_f32(seed, shape):
-    """The uniform under it bitwise; the values within 2 ulp (rtol 2.4e-7,
-    atol 1e-7 near 0), and at most 2% of them off by a bit (1.0% over
-    200,000 draws): PyTorch's log1p against XLA's."""
+    """The uniform under it bitwise, and the values bitwise (the port
+    reproduces XLA's CPU log1p and rounds the square root once)."""
     key, jkey = prng.PRNGKey(seed), jax.random.PRNGKey(seed)
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
     np.testing.assert_array_equal(
@@ -145,8 +143,21 @@ def test_normal_f32(seed, shape):
     want = np.asarray(jax.random.normal(jkey, shape, jnp.float32))
     got = prng.normal(key, shape, torch.float32, device="cpu").numpy()
     assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want, rtol=2.4e-7, atol=1e-7)
-    assert (got != want).mean() <= 0.02
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_log1p_f32_matches_xla():
+    """XLA's CPU f32 log1p bit for bit on both branches (|x| below and
+    above sqrt(2) - 1), over the range the normal draws feed it and
+    beyond; zero, -1 and inf as XLA gives them."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.uniform(-1, 1, 200_000),
+                        rng.uniform(0, 1e4, 50_000),
+                        [-1.0, 0.0, -0.0, np.inf, 1e-30, -1e-30,
+                         0.41421354, -0.41421354]]).astype(np.float32)
+    want = np.asarray(jnp.log1p(jnp.asarray(x)))
+    got = prng._log1p_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
