@@ -131,7 +131,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (launch counters zeroed just before it: one draw a solve); the
              dense parity fleet (10,000 x 128) under the pin on the card
              and on the CPU, with phase 4's gates.
-10. models — a model server answering requests on the card:
+10. sharded — the sharded solve (parallel/sharded_solver.py), every
+             shard on this card, one thread each. First each column
+             reduction's partial route at C bf16[131072, 1024] on an 8 x 1
+             mesh (the fused sparse pass, the column-only product, the
+             fused LSE step, the column LSE, the implied load at
+             int64[131072, 8] -> 1024): the shards' block partials
+             combined once, bit for bit the wrapper on the whole of C.
+             Then the main fleet through dispatch_solve(mesh=...) ->
+             finalize_plan on meshes 1x1, 8x1, 4x2 and 2x4 on the sparse
+             path, and 1x1, 8x1 and 4x2 pinned dense: per shape a warm-up
+             and 3 solves at one seed (launch counters zeroed just before
+             them, read just after), the wall ms, solve_ms, launches per
+             kernel per solve, host syncs and peak device memory. Sparse
+             1x1 and dense 1x1 and 8x1 must be byte for byte the
+             single-device solve's indices and valid; every other shape
+             prints the rows that differ, the largest |dg| and the reason,
+             and must hold agreement >= 0.97 and overflow within 0.5% of
+             demand. One sparse 8x1 solve profiled (device busy and idle
+             share). One 8x1 dense solve under the threefry pin (each
+             shard folds its index into the key: 8 draws a solve; another
+             draw, held to the overflow gate).
+11. models — a model server answering requests on the card:
              start_torch_runtime(device="cuda:0") on localhost, driven
              through the port's stub (RuntimeStatus, LoadModel, Predict,
              ModelSize, UnloadModel) for each family at its default spec,
@@ -157,6 +178,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
+
+``phase_sharded_cards`` is not part of this run: on a host with four
+cards it holds meshes 4x1 and 2x2 across them against one card.
 """
 
 import contextlib
@@ -1085,10 +1109,10 @@ def kernel_split_ms(fn, reps: int) -> dict:
             for name, (ms, _) in device_ms_by_kernel(prof).items()}
 
 
-def phase_profile(dev, cols, phase: str = "profile") -> None:
+def phase_profile(dev, cols, phase: str = "profile", mesh=None) -> None:
     """Where one solve's time goes: torch.profiler over one dispatch +
-    finalize, device time by kernel name and the device's busy share of
-    the solve's wall time."""
+    finalize (sharded over ``mesh`` when given), device time by kernel
+    name and the device's busy share of the solve's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = solve_config_from_env()
@@ -1096,7 +1120,8 @@ def phase_profile(dev, cols, phase: str = "profile") -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        finalize_plan(dispatch_solve(cols, seed=77, config=cfg, device=dev))
+        finalize_plan(dispatch_solve(cols, seed=77, config=cfg, mesh=mesh,
+                                     device=dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = device_ms_by_kernel(prof)
@@ -2019,6 +2044,329 @@ def phase_threefry(dev, card: str, cols) -> dict:
     return {"threefry_gumbel": timed, "launches": launches}
 
 
+# The sharded phase: mesh shapes (mdl, inst), every shard on the one card,
+# the main fleet's sparse solve on each, and the pinned dense solve on the
+# first three; solves timed per shape after a warm-up, all at one seed.
+SHARDED_SHAPES = ((1, 1), (8, 1), (4, 2), (2, 4))
+SHARDED_DENSE_SHAPES = ((1, 1), (8, 1), (4, 2))
+SHARDED_SOLVES = 3
+SHARDED_SEED = 4242
+
+
+def mesh_ops():
+    """The mesh and its solver, imported where a phase needs them (as
+    ``load_ops``)."""
+    from modelmesh_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod
+
+
+def sharded_kernels(dev) -> dict:
+    """The column reductions' partial route on the card: each wrapper run
+    on the 8 row blocks of C bf16[131072, 1024] (an 8 x 1 mesh on this
+    card, the blocks' partials combined once over the model axis) against
+    the same wrapper on the whole of C, bit for bit: the fused sparse pass
+    and the column-only product (c), the fused LSE step and the column
+    LSE ((m, s)), the implied load at int64[131072, 8] -> 1024."""
+    mesh_mod = mesh_ops()
+    cuda_load = load_ops()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n, m = TIER
+    C = (torch.rand(TIER, generator=gen, device=dev) * 4).to(torch.bfloat16)
+    x_row, kw = selection_operands(C)
+    sel = cuda_sparse.select_candidates(C, x_row, SPARSE_K, **kw)
+    v = torch.rand(m, generator=gen, device=dev)
+    u = torch.rand(n, generator=gen, device=dev) + 0.5
+    g = -torch.rand(m, generator=gen, device=dev)
+    f = torch.rand(n, generator=gen, device=dev)
+    log_a = torch.log(u)
+    idx, valid, sizes = load_operands(gen, n, MAX_COPIES, m)
+    eps = SPARSE_EPS
+
+    def calls(rows, col_psum=None):
+        bits, rowmin = sel.bits[rows], sel.rowmin[rows]
+        return {
+            "masked_sinkhorn_step": cuda_sparse.masked_sinkhorn_step(
+                C[rows], bits, rowmin, v, u[rows], eps=eps,
+                col_psum=col_psum),
+            "masked_col_matvec": (cuda_sparse.masked_col_matvec(
+                C[rows], bits, rowmin, u[rows], eps=eps,
+                col_psum=col_psum),),
+            "lse_sinkhorn_step": cuda_lse.lse_sinkhorn_step(
+                C[rows], g, log_a[rows], LSE_EPS, col_psum=col_psum),
+            "col_lse_partial": cuda_lse.col_lse_partial(
+                C[rows], f[rows], LSE_EPS, col_psum=col_psum),
+            "implied_load": (cuda_load.implied_load(
+                idx[rows], valid[rows], sizes[rows], m, col_psum=col_psum),),
+        }
+
+    whole = calls(slice(None))
+    mesh = mesh_mod.make_mesh((8, 1), [dev] * 8)
+    try:
+        def shard():
+            blk = n // 8
+            i = mesh_mod.axis_index(mesh_mod.MODEL_AXIS)
+            return calls(slice(i * blk, (i + 1) * blk),
+                         mesh_mod.AxisSum(mesh_mod.MODEL_AXIS))
+
+        outs = mesh_mod.shard_map(shard, mesh)()
+    finally:
+        mesh.close()
+    torch.cuda.synchronize()
+    differs = {}
+    for name, want in whole.items():
+        # The fused steps' first output is per row (the shard's rows); the
+        # rest are per column, whole on every shard.
+        per_row = name in ("masked_sinkhorn_step", "lse_sinkhorn_step")
+        if per_row:
+            differs[f"{name}_rows"] = bitwise_differs(
+                torch.cat([o[name][0] for o in outs]), want[0])
+        differs[name] = max(
+            bitwise_differs(a, b) for o in outs
+            for a, b in zip(o[name][per_row:], want[per_row:]))
+    check(all(d == 0 for d in differs.values()),
+          f"sharded partial routes differ from the whole-C wrappers: "
+          f"{differs}")
+    return {"shape": list(TIER), "mesh": [8, 1], "bits_differ": differs}
+
+
+def sharded_compare(sol, want, demand: float) -> dict:
+    """A sharded solve's placement against the single-device one's."""
+    gi, gv = sol.indices.cpu(), sol.valid.cpu()
+    wi, wv = want.indices.cpu(), want.valid.cpu()
+    rows_differ = ((gv != wv) | ((gi != wi) & wv)).any(dim=1)
+    return {
+        "byte_identical": same_bytes(sol.indices, want.indices)
+        and same_bytes(sol.valid, want.valid),
+        "rows_differ": int(rows_differ.sum()),
+        "agreement": 1.0 - float(rows_differ.float().mean()),
+        "max_abs_dg": float((sol.g - want.g).abs().max()),
+        "overflow_diff_frac": abs(float(sol.overflow) - float(want.overflow))
+        / demand,
+    }
+
+
+def sharded_run(dev, cols, cfg, shape, want, demand: float,
+                bitwise: bool, same_draw: bool = True) -> dict:
+    """One mesh shape: a warm-up solve, then SHARDED_SOLVES solves through
+    dispatch_solve(mesh=...) -> finalize_plan at SHARDED_SEED, launch
+    counters zeroed just before them and read just after; each solve's
+    placement against the single-device one (``want``): byte for byte when
+    ``bitwise``, else, or when it is not, the rows that differ, the
+    largest |dg|, agreement >= 0.97 (unless the mesh draws other noise:
+    not ``same_draw``) and overflow within 0.5% of demand."""
+    mesh_mod = mesh_ops()
+    _, cuda_random = random_ops()
+    mesh = mesh_mod.make_mesh(shape, [dev] * (shape[0] * shape[1]))
+    try:
+        finalize_plan(dispatch_solve(cols, seed=SHARDED_SEED, config=cfg,
+                                     mesh=mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_launches()
+        cuda_random.reset_launches()
+        syncs0 = device_mod.host_syncs
+        times, stats, compared = [], [], []
+        for _ in range(SHARDED_SOLVES):
+            t = time.perf_counter()
+            pending = dispatch_solve(cols, seed=SHARDED_SEED, config=cfg,
+                                     mesh=mesh)
+            plan = finalize_plan(pending)
+            times.append((time.perf_counter() - t) * 1e3)
+            stats.append(plan.stats)
+            compared.append(sharded_compare(pending.sol, want, demand))
+        launches = dict(all_launches(), **cuda_random.launches)
+        syncs = device_mod.host_syncs - syncs0
+        peak = torch.cuda.max_memory_allocated(dev)
+        threads = mesh.threads()
+    finally:
+        mesh.close()
+    worst = min(compared, key=lambda c: c["agreement"])
+    same = all(c["byte_identical"] for c in compared)
+    out = {
+        "mesh": list(shape), "path": stats[-1]["solver_path"],
+        "solves": SHARDED_SOLVES,
+        "wall_ms_median": float(np.median(times)), "wall_ms": times,
+        "solve_ms": [st["solve_ms"] for st in stats],
+        "dispatch_ms": [st["dispatch_ms"] for st in stats],
+        "extract_ms": [st["extract_ms"] for st in stats],
+        "sinkhorn_iters_run": [st["sinkhorn_iters_run"] for st in stats],
+        "auction_iters_run": [st["auction_iters_run"] for st in stats],
+        "overflow_frac": [st["overflow"] / demand for st in stats],
+        "launches_per_solve": {k: c / SHARDED_SOLVES
+                               for k, c in launches.items() if c},
+        "host_syncs_per_solve": syncs / SHARDED_SOLVES,
+        "peak_device_bytes": peak,
+        "worker_threads": len(set(threads)),
+        "byte_identical": same, **{k: worst[k] for k in (
+            "rows_differ", "agreement", "max_abs_dg", "overflow_diff_frac")},
+        "launches": launches,
+    }
+    if not same_draw:
+        out["reason"] = ("threefry folds each shard's index into its key: "
+                         "another draw than the single-device solve's")
+    elif not same and shape[1] > 1 and out["path"] == "sharded":
+        out["reason"] = ("kernel 4's row pairs combine over inst as M = "
+                         "max(m), log(sum(s exp(m - M))) + M, which rounds "
+                         "apart from one pass over the whole row")
+    elif not same:
+        out["reason"] = ("the gate sums (the marginal error's, the total "
+                         "demand) add the shards' sums, in another order "
+                         "than one sum over the rows")
+    emit({"phase": "sharded_shape", **{k: v for k, v in out.items()
+                                       if k != "launches"}})
+    check(not bitwise or same,
+          f"sharded {shape} {out['path']}: not byte for byte the "
+          f"single-device placement ({worst})")
+    check((worst["agreement"] >= 0.97 or not same_draw)
+          and worst["overflow_diff_frac"] <= 0.005,
+          f"sharded {shape} {out['path']}: {worst}")
+    return out
+
+
+def phase_sharded(dev, card: str, cols) -> dict:
+    """The sharded solve on the card (module docstring, phase 10)."""
+    t0 = time.perf_counter()
+    kernels = sharded_kernels(dev)
+    demand = demand_of(cols)
+    totals: dict = {}
+    runs = {}
+
+    def single(cfg):
+        return dispatch_solve(cols, seed=SHARDED_SEED, config=cfg,
+                              device=dev).sol
+
+    def run(tag, cfg, want, shapes, bitwise):
+        for shape in shapes:
+            got = sharded_run(dev, cols, cfg, shape, want, demand,
+                              bitwise(shape))
+            runs[f"{tag}_{shape[0]}x{shape[1]}"] = got
+            add_launches(totals, got.pop("launches"))
+
+    cfg = solve_config_from_env()
+    run("sparse", cfg, single(cfg), SHARDED_SHAPES, lambda s: s == (1, 1))
+    mesh = mesh_ops().make_mesh((8, 1), [dev] * 8)
+    try:
+        phase_profile(dev, cols, "sharded_profile", mesh=mesh)
+    finally:
+        mesh.close()
+    with dense_pin():
+        cfg = solve_config_from_env()
+        run("dense", cfg, single(cfg), SHARDED_DENSE_SHAPES,
+            lambda s: s[1] == 1)
+    with dense_pin(), env_pin("MM_SOLVER_NOISE_IMPL", "threefry"):
+        # The threefry pin: each shard draws under its own folded key, so
+        # the placement is another draw's; held to the quality gates.
+        cfg = solve_config_from_env()
+        want = single(cfg)
+        got = sharded_run(dev, cols, cfg, (8, 1), want, demand, False,
+                          same_draw=False)
+        runs["dense_threefry_8x1"] = got
+        launches = got.pop("launches")
+        add_launches(totals, launches)
+        check(launches["threefry_gumbel"] == 8 * SHARDED_SOLVES,
+              f"sharded threefry launches {launches}")
+    for name in ("select_candidates", "masked_row_matvec",
+                 "masked_sinkhorn_step", "lse_sinkhorn_step",
+                 "row_lse_partial", "col_lse_partial", "implied_load",
+                 "threefry_gumbel"):
+        check(totals.get(name, 0) > 0,
+              f"{name} never launched on the sharded path")
+    for tag, got in runs.items():
+        check(got["path"] == ("sharded-sparse" if tag.startswith("sparse")
+                              else "sharded"), f"{tag}: path {got['path']}")
+    result = {"phase": "sharded", "card": card, "models": MAIN_FLEET[0],
+              "instances": MAIN_FLEET[1], "padded": list(TIER),
+              "seed": SHARDED_SEED, "kernels": kernels,
+              "launches_in_run": totals,
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# Meshes across cards (phase_sharded_cards): the cards, the shapes.
+CARDS = 4
+CARD_SHAPES = ((4, 1), (2, 2))
+
+
+def cards_run(tier: str, cols, devices) -> list:
+    """One tier on CARD_SHAPES over ``devices``: a warm-up and
+    SHARDED_SOLVES solves per shape at SHARDED_SEED, each placement against
+    the single-device one on ``devices[0]``."""
+    mesh_mod = mesh_ops()
+    cfg = solve_config_from_env()
+    demand = demand_of(cols)
+
+    def timed(**where):
+        t = time.perf_counter()
+        pending = dispatch_solve(cols, seed=SHARDED_SEED, config=cfg,
+                                 **where)
+        finalize_plan(pending)
+        return (time.perf_counter() - t) * 1e3, pending
+
+    timed(device=devices[0])
+    single_ms, want = timed(device=devices[0])
+    out = []
+    for shape in CARD_SHAPES:
+        mesh = mesh_mod.make_mesh(shape, devices)
+        try:
+            timed(mesh=mesh)
+            syncs0 = device_mod.host_syncs
+            times, compared = [], []
+            for _ in range(SHARDED_SOLVES):
+                ms, pending = timed(mesh=mesh)
+                times.append(ms)
+                compared.append(sharded_compare(pending.sol, want.sol,
+                                                demand))
+            syncs = (device_mod.host_syncs - syncs0) / SHARDED_SOLVES
+        finally:
+            mesh.close()
+        got = {"phase": "sharded_cards", "tier": tier, "mesh": list(shape),
+               "devices": [str(d) for d in devices], "path": pending.path,
+               "single_ms": single_ms,
+               "wall_ms_median": float(np.median(times)), "wall_ms": times,
+               "host_syncs_per_solve": syncs, "compare": compared}
+        emit(got)
+        bitwise = tier == "sparse" or shape[1] == 1
+        for c in compared:
+            check(c["byte_identical"] or not bitwise,
+                  f"sharded_cards {tier} {shape}: not the single-device "
+                  f"placement {c}")
+            check(c["agreement"] >= 0.97 and c["overflow_diff_frac"] <= 0.005,
+                  f"sharded_cards {tier} {shape}: {c}")
+        out.append(got)
+    return out
+
+
+def phase_sharded_cards() -> list:
+    """The sharded solve across CARDS cards of one host, where the
+    collectives copy between devices (phase ``sharded`` holds every shard
+    on one card). Not part of ``main``, which needs one card: run it alone
+    on a host with four,
+
+        python3 -c 'import chip_smoke as cs; cs.phase_sharded_cards()'
+
+    The main fleet on cuda:0 alone, then on meshes 4x1 and 2x2 over
+    cuda:0-3, the sparse path and pinned dense: the sparse shapes and the
+    dense whole-row mesh byte for byte the single-device placement, every
+    shape agreement >= 0.97 and overflow within 0.5% of demand. Prints
+    every card's name and power limit."""
+    check(torch.cuda.is_available() and torch.cuda.device_count() >= CARDS,
+          f"phase_sharded_cards needs {CARDS} CUDA devices")
+    devices = [torch.device("cuda", i) for i in range(CARDS)]
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip(), flush=True)
+    phase_build()
+    cols = steady_fleet(*MAIN_FLEET)
+    runs = cards_run("sparse", cols, devices)
+    with dense_pin():
+        runs += cards_run("dense", cols, devices)
+    return runs
+
+
 def model_input(model, rows: int, seed: int) -> np.ndarray:
     """Seeded rows of a family's input (token ids for the int families)."""
     rng = np.random.default_rng(seed)
@@ -2382,6 +2730,7 @@ def main() -> int:
     steady = phase_steady(dev, card)
     pipelined = phase_pipelined(dev, card)
     threefry = phase_threefry(dev, card, cols)
+    sharded = phase_sharded(dev, card, cols)
     phase_models(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
@@ -2432,6 +2781,8 @@ def main() -> int:
     # load on its incremental ones.
     for entry in entries:
         entry["pipelined_launches"] = pipelined["launches_in_run"].get(
+            entry["name"], 0)
+        entry["sharded_launches"] = sharded["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

@@ -123,12 +123,23 @@ load_combine_kernel(const float* __restrict__ partial,
   out[col] = acc;
 }
 
+int launch_combine(const void* partial, void* out, int parts, int m,
+                   cudaStream_t st) {
+  load_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
+                        dim3(kCombineCols, kCombineLanes), 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), parts, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes. The wrapper checks dtypes, shapes
 // and strides, and allocates the output and the block partials
 // (f32[ceil(n * s / block_entries), m]; block_entries a multiple of 256).
 // Returns the cudaGetLastError() code after the launches (0 = launched).
+// A null `out` stops after the pass and leaves the block partials in
+// `partial`, for a combine over the partials of several row blocks
+// (mm_load_combine: each block's partials in order).
 extern "C" {
 
 int mm_implied_load(const void* idx, const void* valid, const void* sizes,
@@ -148,12 +159,17 @@ int mm_implied_load(const void* idx, const void* valid, const void* sizes,
       static_cast<const float*>(sizes), static_cast<float*>(partial), total,
       s, idx_stride, valid_stride, m, block_entries / kWarps);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  load_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
-                        dim3(kCombineCols, kCombineLanes), 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), blocks,
-      m);
-  return static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess || out == nullptr) return static_cast<int>(err);
+  return launch_combine(partial, out, blocks, m, st);
+}
+
+// out[col] = the fixed-order sum of partial[0..parts)[col]: the combine,
+// over block partials gathered from several row blocks.
+int mm_load_combine(const void* partial, void* out, int parts, int m,
+                    void* stream) {
+  if (parts < 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_combine(partial, out, parts, m,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -559,7 +559,9 @@ int launch_col(const LseArgs& a, cudaStream_t st) {
   // Shared memory at the widest layout of kSlots loads (32 lanes a row).
   constexpr int kMaxBytes = 2 * kWarps * 32 * kSlots * kVec * 4 +
                             (kFused ? kSlabChunks * kVec * 4 : 0);
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Per launch: the attribute is the current device's, and a mesh
+  // launches on several devices.
+  const cudaError_t attr = cudaFuncSetAttribute(
       dense_col_kernel<kFused, kSlots, kAligned>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -571,8 +573,18 @@ int launch_col(const LseArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The column kernel of `slots` loads per lane, then the combine of its
-// block partials.
+// The fixed-order combine of `chunks` block partials (f32[chunks, m] each)
+// into (m_out, s_out).
+int launch_combine(const float* m_part, const float* s_part, float* m_out,
+                   float* s_out, int chunks, int m, cudaStream_t st) {
+  col_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
+                       dim3(kCombineCols, kCombineLanes), 0, st>>>(
+      m_part, s_part, m_out, s_out, chunks, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The column kernel of `slots` loads per lane, then, unless m_out is null,
+// the combine of its block partials.
 template <bool kFused>
 int run_col(const LseArgs& a, int slots, bool aligned, float* m_out,
             float* s_out, cudaStream_t st) {
@@ -586,12 +598,10 @@ int run_col(const LseArgs& a, int slots, bool aligned, float* m_out,
   } else {
     err = launch_col<kFused, 4, true>(a, st);
   }
-  if (err != 0) return err;
-  const int blocks = (a.n + a.rows_per_block - 1) / a.rows_per_block;
-  col_combine_kernel<<<(a.m + kCombineCols - 1) / kCombineCols,
-                       dim3(kCombineCols, kCombineLanes), 0, st>>>(
-      a.m_part, a.s_part, m_out, s_out, blocks, a.m);
-  return static_cast<int>(cudaGetLastError());
+  if (err != 0 || m_out == nullptr) return err;
+  return launch_combine(a.m_part, a.s_part, m_out, s_out,
+                        (a.n + a.rows_per_block - 1) / a.rows_per_block, a.m,
+                        st);
 }
 
 }  // namespace
@@ -602,6 +612,9 @@ int run_col(const LseArgs& a, int slots, bool aligned, float* m_out,
 // rows_per_block a multiple of 64), and passes inv_eps = 1 / eps as f32.
 // Each returns the cudaGetLastError() code after its launches (0 =
 // launched), or cudaErrorInvalidValue for operands the kernels do not take.
+// The column passes take a null m_out to stop after the pass and leave the
+// block partials in (m_part, s_part), for a combine over the partials of
+// several row blocks (mm_lse_col_combine: each block's partials in order).
 extern "C" {
 
 int mm_row_lse_partial(const void* C, const void* g, void* m_out, void* s_out,
@@ -678,6 +691,18 @@ int mm_lse_sinkhorn_step(const void* C, const void* g, const void* log_a,
   return run_col<true>(a, slots, aligned, static_cast<float*>(m_out),
                        static_cast<float*>(s_out),
                        static_cast<cudaStream_t>(stream));
+}
+
+// (m_out, s_out)[col] = the fixed-order combine of the (m, s) partials
+// 0..chunks at col: the column passes' combine, over partials gathered from
+// several row blocks.
+int mm_lse_col_combine(const void* m_part, const void* s_part, void* m_out,
+                       void* s_out, int chunks, int m, void* stream) {
+  if (chunks < 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_combine(static_cast<const float*>(m_part),
+                        static_cast<const float*>(s_part),
+                        static_cast<float*>(m_out), static_cast<float*>(s_out),
+                        chunks, m, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -984,6 +984,15 @@ int warp_blocks(int n) {
                           kThreads);
 }
 
+// The fixed-order sum of `parts` block partials (f32[parts, m]) into out.
+int launch_combine(const void* partial, void* out, int parts, int m,
+                   cudaStream_t stream) {
+  col_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
+                       dim3(kCombineCols, kCombineLanes), 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), parts, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kFused, bool kRingStage>
 int launch_col_kernel(const void* C, const void* bits, const void* rowmin,
                       const void* w, const void* row_mass, void* r_out,
@@ -991,7 +1000,9 @@ int launch_col_kernel(const void* C, const void* bits, const void* rowmin,
                       float eps, cudaStream_t stream) {
   const int smem = kWarps * (kSlab * 4 + static_cast<int>(sizeof(CandList))) +
                    (kRingStage ? kWarps * kRing * kTileBytes : 0);
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Per launch: the attribute is the current device's, and a mesh
+  // launches on several devices.
+  const cudaError_t attr = cudaFuncSetAttribute(
       col_kernel<kFused, kRingStage>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -1004,9 +1015,9 @@ int launch_col_kernel(const void* C, const void* bits, const void* rowmin,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The column pass (kFused: the fused pass) and the combine of its block
-// partials. The ring stage takes 16-byte rows; ragged or unaligned C takes
-// the register stage.
+// The column pass (kFused: the fused pass) and, unless out is null, the
+// combine of its block partials. The ring stage takes 16-byte rows; ragged
+// or unaligned C takes the register stage.
 template <bool kFused>
 int launch_col(const void* C, const void* bits, const void* rowmin,
                const void* w, const void* row_mass, void* r_out,
@@ -1024,12 +1035,9 @@ int launch_col(const void* C, const void* bits, const void* rowmin,
           : launch_col_kernel<kFused, false>(C, bits, rowmin, w, row_mass,
                                              r_out, partial, n, m,
                                              rows_per_block, eps, stream);
-  if (err != 0) return err;
-  const int parts = (n + rows_per_block - 1) / rows_per_block;
-  col_combine_kernel<<<(m + kCombineCols - 1) / kCombineCols,
-                       dim3(kCombineCols, kCombineLanes), 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), parts, m);
-  return static_cast<int>(cudaGetLastError());
+  if (err != 0 || out == nullptr) return err;
+  return launch_combine(partial, out,
+                        (n + rows_per_block - 1) / rows_per_block, m, stream);
 }
 
 }  // namespace
@@ -1039,6 +1047,9 @@ int launch_col(const void* C, const void* bits, const void* rowmin,
 // shapes, dtypes and contiguity, and allocates the outputs and the column
 // scratch (`partial`, f32[ceil(n / rows_per_block), m]); rows_per_block is
 // a multiple of 8. Each returns the cudaGetLastError() code after its launches (0 = launched).
+// The column products take a null `out` (c_out) to stop after the pass and
+// leave the block partials in `partial`, for a combine over the partials of
+// several row blocks (mm_col_combine: each block's partials in order).
 extern "C" {
 
 int mm_masked_row_min(const void* C, const void* thresh, const void* x_row,
@@ -1067,7 +1078,9 @@ int mm_select_candidates(const void* C, const void* x_row, void* idx,
   const int warp_bytes = select_warp_floats(stride) * 4;
   const int warps =
       std::max(1, std::min(kWarps, kSelectBlockSmem / warp_bytes));
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Per launch: the attribute is the current device's, and a mesh
+  // launches on several devices.
+  const cudaError_t attr = cudaFuncSetAttribute(
       select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxBlockSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -1125,6 +1138,15 @@ int mm_masked_sinkhorn_step(const void* C, const void* bits,
   return launch_col<true>(C, bits, rowmin, v, row_mass, r_out, partial,
                           c_out, n, m, rows_per_block, eps,
                           static_cast<cudaStream_t>(stream));
+}
+
+// out[col] = the fixed-order sum of partial[0..parts)[col]: the column
+// products' combine, over partials gathered from several row blocks.
+int mm_col_combine(const void* partial, void* out, int parts, int m,
+                   void* stream) {
+  if (parts < 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_combine(partial, out, parts, m,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

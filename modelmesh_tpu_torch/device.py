@@ -10,7 +10,11 @@ The solve's convergence gates are Python control flow on 0-d device
 tensors, and each decision is a host sync (the stream drains before the
 value reaches Python). ``item`` and ``finish_readback`` are the only ways
 the solve path moves a value to the host, and ``host_syncs`` counts them
-so a run can report syncs per solve.
+so a run can report syncs per solve. The count is kept under a lock: the
+shards of a sharded solve (``parallel/sharded_solver.py``) run in threads
+of their own and each reads every gate on its own device, so a sharded
+solve counts one sync per gate read per shard (a mesh of 8 shards, 8 for
+each gate), plus the one readback.
 
 A readback is split in two: ``start_readback`` enqueues the copy behind
 the work already on the tensor's stream and returns at once, and
@@ -20,13 +24,21 @@ two (the next solve) is not waited for.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
 # Host syncs made through item()/readback() since the process started (or
 # the caller last zeroed it).
-host_syncs = 0
+host_syncs = 0  #: guarded-by: _sync_lock
+_sync_lock = threading.Lock()
+
+
+def _count_sync() -> None:
+    global host_syncs
+    with _sync_lock:
+        host_syncs += 1
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -58,8 +70,7 @@ def resolve_kernel_impl(knob: str, value: str, device) -> str:
 
 def item(t: torch.Tensor):
     """``t.item()``, counted as one host sync."""
-    global host_syncs
-    host_syncs += 1
+    _count_sync()
     return t.item()
 
 
@@ -88,8 +99,7 @@ def start_readback(t: torch.Tensor) -> Readback:
 def finish_readback(rb: Readback) -> torch.Tensor:
     """Wait for ``rb``'s copy (and only for the work enqueued before it),
     counted as one host sync; the host tensor."""
-    global host_syncs
-    host_syncs += 1
+    _count_sync()
     if rb.done is not None:
         rb.done.synchronize()
     return rb.host

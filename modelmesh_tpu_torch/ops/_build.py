@@ -60,6 +60,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mm_masked_sinkhorn_step": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P,
         ],
+        "mm_col_combine": [_P, _P, _I, _I, _P],
     },
     "lse": {
         "mm_row_lse_partial": [_P, _P, _P, _P, _I, _I, _F, _P],
@@ -67,9 +68,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mm_lse_sinkhorn_step": [
             _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P,
         ],
+        "mm_lse_col_combine": [_P, _P, _P, _P, _I, _I, _P],
     },
     "implied_load": {
         "mm_implied_load": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P],
+        "mm_load_combine": [_P, _P, _I, _I, _P],
     },
     "threefry": {
         "mm_threefry": [_P, _U, _U, _L, _I, _P],
@@ -78,6 +81,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  #: guarded-by: _lock
+# Serializes the wrappers' launch counts: the shards of a mesh launch from
+# threads of their own.
+_count_lock = threading.Lock()
 # Per-library compiler output (ptxas register/spill report) and seconds
 # spent building, from the last build in this process.
 build_log: dict[str, str] = {}  #: guarded-by: _lock
@@ -214,6 +220,12 @@ def check_cuda(C, rows=(), cols=()) -> tuple[int, int]:
     if C.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {C.device}")
     return check_operands(C, rows, cols)
+
+
+def count_launch(table: dict, name: str) -> None:
+    """``table[name] += 1`` under a lock (a wrapper's launch count)."""
+    with _count_lock:
+        table[name] += 1
 
 
 def launch(lib_name: str, fn_name: str, device, *args) -> None:

@@ -178,19 +178,23 @@ def _select(scores_minus_price: torch.Tensor, copies: torch.Tensor):
 
 
 def _implied_load(idx, valid, sizes, num_instances: int,
-                  impl: str = "scatter") -> torch.Tensor:
+                  impl: str = "scatter", col_psum=None) -> torch.Tensor:
     """Memory load the assignment implies per instance: "scatter"
     (``index_add_``; on the card its float atomics sum in another order on
     every run) or "fused" (``cuda_load.implied_load``: the fixed-order
     kernel on the card, the reference's one-hot compare-reduce on the
-    CPU). ``impl`` comes resolved (``resolve_load_impl``)."""
+    CPU). ``impl`` comes resolved (``resolve_load_impl``). ``col_psum``
+    sums the load over the row blocks of a sharded problem (the fused
+    route combines the blocks' partials, ``cuda_load``)."""
     if impl not in ("scatter", "fused"):
         raise ValueError(f"unresolved load impl {impl!r}")
     if impl == "fused":
-        return cuda_load.implied_load(idx, valid, sizes, num_instances)
+        return cuda_load.implied_load(idx, valid, sizes, num_instances,
+                                      col_psum=col_psum)
     contrib = sizes[:, None] * valid.to(torch.float32)  # [N, K]
     load = torch.zeros(num_instances, dtype=torch.float32, device=sizes.device)
-    return load.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
+    load = load.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
+    return load if col_psum is None else col_psum(load)
 
 
 def resolve_load_impl(load_impl: str, device=None) -> str:
@@ -286,7 +290,7 @@ def _stall_gated_rounds(narrow_round, carry, iters: int, stall_tol: float,
 
 def price_repair(round_select, final_select_fn, load_fn, sizes, copies, cap,
                  *, iters: int, eta: float, final_select: str,
-                 stall_tol: float, price0) -> AuctionResult:
+                 stall_tol: float, price0, axis_psum=None) -> AuctionResult:
     """Best-iterate congestion-price repair, shared by the dense and the
     sparse auction. ``round_select(price)`` gives the selection function
     of a round opening at ``price`` (the dense auction shortlists there;
@@ -300,7 +304,12 @@ def price_repair(round_select, final_select_fn, load_fn, sizes, copies, cap,
     warm-start carry); the epilogue's selection at the final prices
     competes with it unless ``final_select == "none"``. ``stall_tol`` > 0
     gates the rounds (``_stall_gated_rounds``) after a one-step warm probe
-    (``warm_probe``), which "none" skips."""
+    (``warm_probe``), which "none" skips.
+
+    On a sharded problem (rows split over a mesh's model axis) ``load_fn``
+    gives the load summed over the shards and ``axis_psum`` sums the total
+    demand, so every gate scalar is the same on every shard and all of
+    them take the same branch."""
     n = copies.shape[0]
     dev = cap.device
 
@@ -363,6 +372,8 @@ def price_repair(round_select, final_select_fn, load_fn, sizes, copies, cap,
         return epilogue(carry, iters)
 
     total_demand = (sizes * copies.to(torch.float32)).sum()
+    if axis_psum is not None:
+        total_demand = axis_psum(total_demand)
     if final_select == "none":
         carry, iters_run = _stall_gated_rounds(
             narrow_round, carry, iters, stall_tol, total_demand,

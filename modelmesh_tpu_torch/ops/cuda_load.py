@@ -15,6 +15,15 @@ the card it gives the same load on every run.
 ``implied_load`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises. ``launches`` counts kernel
 launches.
+
+``implied_load`` takes ``col_psum``: the sum over the row blocks of a
+sharded problem (``parallel.mesh.AxisSum`` over the model axis). On the
+card each block's pass leaves its block partials, the shards' partials are
+gathered in rank order and the combine runs once over all of them, so
+blocks whose entries (rows x slots) are multiples of ``BLOCK_ENTRIES`` give
+the load of the whole assignment bit for bit; the combine is part of the
+launch and is not counted again. On the CPU the shards' loads are added
+(an ordinary sum).
 """
 
 from __future__ import annotations
@@ -96,26 +105,40 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.shape[1] <= 1 or t.stride(1) == 1 else t.contiguous()
 
 
-def implied_load(idx, valid, sizes, num_instances: int) -> torch.Tensor:
+def _combine(partial: torch.Tensor) -> torch.Tensor:
+    """The fixed-order sum of block partials f32[parts, M] -> f32[M]."""
+    parts, m = partial.shape
+    out = torch.empty(m, dtype=torch.float32, device=partial.device)
+    _build.launch(LIB, "mm_load_combine", partial.device,
+                  partial.contiguous().data_ptr(), out.data_ptr(), parts, m)
+    return out
+
+
+def implied_load(idx, valid, sizes, num_instances: int,
+                 col_psum=None) -> torch.Tensor:
     """f32[num_instances]: the memory load the assignment implies per
-    instance, summed in a fixed order."""
+    instance, summed in a fixed order (``col_psum``: over the row blocks of
+    a sharded problem, module docstring)."""
     n, s = _check(idx, valid, sizes)
     if sizes.device.type == "cpu":
-        return implied_load_ref(idx, valid, sizes, num_instances)
+        load = implied_load_ref(idx, valid, sizes, num_instances)
+        return load if col_psum is None else col_psum(load)
     if sizes.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {sizes.device}")
-    out = torch.empty(num_instances, dtype=torch.float32, device=sizes.device)
     if n * s == 0 or num_instances == 0:
-        return out.zero_()
+        return torch.zeros(num_instances, dtype=torch.float32,
+                           device=sizes.device)
     idx, valid = _rows(idx), _rows(valid)
     sizes = sizes.contiguous()
     partial = torch.empty((-(-(n * s) // BLOCK_ENTRIES), num_instances),
                           dtype=torch.float32, device=sizes.device)
+    out = (torch.empty(num_instances, dtype=torch.float32,
+                       device=sizes.device) if col_psum is None else None)
     _build.launch(
         LIB, "mm_implied_load", sizes.device,
         idx.data_ptr(), valid.data_ptr(), sizes.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n, s, idx.stride(0),
-        valid.stride(0), num_instances, BLOCK_ENTRIES,
+        partial.data_ptr(), None if out is None else out.data_ptr(),
+        n, s, idx.stride(0), valid.stride(0), num_instances, BLOCK_ENTRIES,
     )
-    launches["implied_load"] += 1
-    return out
+    _build.count_launch(launches, "implied_load")
+    return out if col_psum is None else col_psum.combine(_combine, partial)

@@ -53,7 +53,7 @@ def random_bits(key: torch.Tensor, shape, device) -> torch.Tensor:
     if torch.device(device).type == "cpu":
         return prng.random_bits(key, 32, shape, device)
     out = _launch(key, shape, device, torch.int32, _MODE_BITS)
-    launches["threefry_bits"] += 1
+    _build.count_launch(launches, "threefry_bits")
     return out.long() & prng.MASK32
 
 
@@ -62,5 +62,5 @@ def gumbel(key: torch.Tensor, shape, device) -> torch.Tensor:
     if torch.device(device).type == "cpu":
         return prng.gumbel(key, shape, device)
     out = _launch(key, shape, device, torch.float32, _MODE_GUMBEL)
-    launches["threefry_gumbel"] += 1
+    _build.count_launch(launches, "threefry_gumbel")
     return out

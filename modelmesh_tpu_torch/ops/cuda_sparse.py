@@ -21,6 +21,15 @@ the CPU; for CUDA tensors it launches the kernel in
 ``csrc/masked_sparse.cu`` (built at first use by ``_build``) or raises.
 There is no fallback from one to the other. ``launches`` counts kernel
 launches per wrapper.
+
+The column products take ``col_psum``: the sum over the row blocks of a
+sharded problem (``parallel.mesh.AxisSum`` over the model axis). On the
+card each block's pass leaves its block partials, the shards' partials
+are gathered in rank order and the combine runs once over all of them, so
+blocks whose heights are multiples of ``ROWS_PER_BLOCK`` give the column
+sums of the whole problem bit for bit; the combine is part of the
+wrapper's launch and is not counted again. On the CPU the plain versions'
+column sums are added over the shards (an ordinary sum).
 """
 
 from __future__ import annotations
@@ -114,11 +123,16 @@ def unpack_mask(bits: torch.Tensor, m: int) -> torch.Tensor:
     return flat[:, :m].bool()
 
 
-def noise_row_state(n: int, seed: int, device) -> torch.Tensor:
+def noise_row_state(n: int, seed: int, device,
+                    row_offset: int | None = None) -> torch.Tensor:
     """Row-side hash state ``fmix32(row ^ seed * 0xC2B2AE35)`` as int32
     bits — the (row, seed) prefix of ``auction.hash_gumbel_at``, computed
-    once per solve so the kernels need only the column-side mix."""
+    once per solve so the kernels need only the column-side mix. Rows
+    count from ``row_offset`` (mod 2**32): a block of rows gets the state
+    of the same rows of the whole problem."""
     rows = torch.arange(n, dtype=torch.int64, device=device)
+    if row_offset:
+        rows = (rows + int(row_offset)) & 0xFFFFFFFF
     return _as_i32(auction.row_state(rows, seed))
 
 
@@ -230,7 +244,16 @@ def _f32(**named) -> list:
 
 def _launch(name: str, fn_name: str, device, *args) -> None:
     _build.launch(LIB, fn_name, device, *args)
-    launches[name] += 1
+    _build.count_launch(launches, name)
+
+
+def _combine_cols(partial: torch.Tensor) -> torch.Tensor:
+    """The fixed-order sum of block partials f32[parts, M] -> f32[M]."""
+    parts, m = partial.shape
+    out = torch.empty(m, dtype=torch.float32, device=partial.device)
+    _build.launch(LIB, "mm_col_combine", partial.device,
+                  partial.contiguous().data_ptr(), out.data_ptr(), parts, m)
+    return out
 
 
 def masked_row_min(C, thresh, x_row, *, tau: float,
@@ -328,30 +351,37 @@ def masked_row_matvec(C, bits, rowmin, v, *, eps: float):
     return out
 
 
-def masked_col_matvec(C, bits, rowmin, u, *, eps: float):
+def masked_col_matvec(C, bits, rowmin, u, *, eps: float, col_psum=None):
     """c = u @ P without materializing P -> f32[M] (block partials, then a
-    fixed-order sum; no float atomics)."""
+    fixed-order sum; no float atomics). ``col_psum``: summed over the row
+    blocks of a sharded problem (module docstring)."""
     if C.device.type == "cpu":
         _check_plain(C, bits, rowmin, u)
-        return masked_col_matvec_ref(C, bits, rowmin, u, eps=eps)
+        c = masked_col_matvec_ref(C, bits, rowmin, u, eps=eps)
+        return c if col_psum is None else col_psum(c)
     n, m = _check_cuda(C, rows=_f32(rowmin=rowmin, u=u), bits=bits)
     if n == 0 or m == 0:
         return torch.zeros(m, dtype=torch.float32, device=C.device)
     partial = torch.empty((-(-n // ROWS_PER_BLOCK), m), dtype=torch.float32,
                           device=C.device)
-    out = torch.empty(m, dtype=torch.float32, device=C.device)
+    out = (torch.empty(m, dtype=torch.float32, device=C.device)
+           if col_psum is None else None)
     _launch(
         "masked_col_matvec", "mm_masked_col_matvec", C.device,
         C.data_ptr(), bits.data_ptr(), rowmin.data_ptr(), u.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n, m, ROWS_PER_BLOCK, eps,
+        partial.data_ptr(), None if out is None else out.data_ptr(), n, m,
+        ROWS_PER_BLOCK, eps,
     )
-    return out
+    return out if col_psum is None else col_psum.combine(_combine_cols,
+                                                         partial)
 
 
-def masked_sinkhorn_step(C, bits, rowmin, v, row_mass, *, eps: float):
+def masked_sinkhorn_step(C, bits, rowmin, v, row_mass, *, eps: float,
+                         col_psum=None):
     """One Sinkhorn iteration's products in one pass over C (at most
     FUSED_MAX_COLS columns): r = max(P @ v, TINY) -> f32[N] and
-    c = (row_mass / r) @ P -> f32[M]."""
+    c = (row_mass / r) @ P -> f32[M], ``col_psum`` summing c over the row
+    blocks of a sharded problem (module docstring)."""
     if C.shape[-1] > FUSED_MAX_COLS:
         raise ValueError(
             f"masked_sinkhorn_step takes at most {FUSED_MAX_COLS} columns "
@@ -360,8 +390,9 @@ def masked_sinkhorn_step(C, bits, rowmin, v, row_mass, *, eps: float):
         )
     if C.device.type == "cpu":
         _check_plain(C, bits, rowmin, v, row_mass)
-        return masked_sinkhorn_step_ref(C, bits, rowmin, v, row_mass,
+        r, c = masked_sinkhorn_step_ref(C, bits, rowmin, v, row_mass,
                                         eps=eps)
+        return r, (c if col_psum is None else col_psum(c))
     n, m = _check_cuda(C, rows=_f32(rowmin=rowmin, row_mass=row_mass),
                        cols=_f32(v=v), bits=bits)
     if n == 0 or m == 0:
@@ -370,11 +401,13 @@ def masked_sinkhorn_step(C, bits, rowmin, v, row_mass, *, eps: float):
     r = torch.empty(n, dtype=torch.float32, device=C.device)
     partial = torch.empty((-(-n // ROWS_PER_BLOCK), m), dtype=torch.float32,
                           device=C.device)
-    c = torch.empty(m, dtype=torch.float32, device=C.device)
+    c = (torch.empty(m, dtype=torch.float32, device=C.device)
+         if col_psum is None else None)
     _launch(
         "masked_sinkhorn_step", "mm_masked_sinkhorn_step", C.device,
         C.data_ptr(), bits.data_ptr(), rowmin.data_ptr(), v.data_ptr(),
-        row_mass.data_ptr(), r.data_ptr(), partial.data_ptr(), c.data_ptr(),
-        n, m, ROWS_PER_BLOCK, eps,
+        row_mass.data_ptr(), r.data_ptr(), partial.data_ptr(),
+        None if c is None else c.data_ptr(), n, m, ROWS_PER_BLOCK, eps,
     )
-    return r, c
+    return r, (c if col_psum is None
+               else col_psum.combine(_combine_cols, partial))

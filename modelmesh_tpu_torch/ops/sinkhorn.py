@@ -38,7 +38,7 @@ def resolve_lse_impl(lse_impl: str, device) -> str:
 
 def gated_sinkhorn_loop(
     run_iters, marginal_err, f_init, g_init, *,
-    eps: float, iters: int, tol: float, chunk: int,
+    eps: float, iters: int, tol: float, chunk: int, dg_reduce=None,
 ):
     """A single-iteration warm probe, then chunks of ``chunk`` iterations
     until the relative row-marginal error is <= ``tol`` or the budget
@@ -46,12 +46,17 @@ def gated_sinkhorn_loop(
 
     The probe's g-move ``dg`` bounds the relative row-marginal error by
     ~dg/eps, so ``dg <= tol * eps`` exits after one iteration and reports
-    ``dg / eps`` as the error. Returns (f, g, row_err, iters_run)."""
+    ``dg / eps`` as the error. ``dg_reduce`` makes dg the same on every
+    shard of a sharded solve (a max over the mesh axis g is split on), so
+    every shard takes the same branch. Returns (f, g, row_err,
+    iters_run)."""
     chunk = min(chunk, iters)
     n_chunks = -(-iters // chunk)
 
     f1, g1 = run_iters(f_init, g_init, 1)
     dg = (g1 - g_init).abs().max()
+    if dg_reduce is not None:
+        dg = dg_reduce(dg)
     if device_mod.item(dg <= tol * eps):
         return f1, g1, dg / eps, 1
 
@@ -67,11 +72,11 @@ def gated_sinkhorn_loop(
 
 def run_sinkhorn(run_iters, marginal_err, n: int, g0, log_b, *,
                  eps: float, iters: int, tol: float,
-                 chunk: int) -> SinkhornResult:
+                 chunk: int, dg_reduce=None) -> SinkhornResult:
     """Drive ``run_iters(f, g, length)`` from f = 0 and ``g0`` (clamped to
     the g <= 0 invariant; zeros when None): a fixed budget when the gate
     is off (``tol``, ``chunk`` or ``iters`` <= 0), else
-    ``gated_sinkhorn_loop``."""
+    ``gated_sinkhorn_loop`` (with ``dg_reduce``)."""
     f_init = torch.zeros(n, dtype=torch.float32, device=log_b.device)
     g_init = (
         torch.clamp_max(g0.to(torch.float32), 0.0)
@@ -86,7 +91,7 @@ def run_sinkhorn(run_iters, marginal_err, n: int, g0, log_b, *,
         )
     return SinkhornResult(*gated_sinkhorn_loop(
         run_iters, marginal_err, f_init, g_init,
-        eps=eps, iters=iters, tol=tol, chunk=chunk,
+        eps=eps, iters=iters, tol=tol, chunk=chunk, dg_reduce=dg_reduce,
     ))
 
 

@@ -18,6 +18,13 @@ a few rows re-selected against the frozen column state of the last one.
 
 Rounding noise is the positional hash-Gumbel draw, a pure function of
 (row, col, seed), so the gathered and full-width evaluations agree.
+
+The sharded solve (``parallel/sharded_solver.py``) runs these functions on
+each block of rows: ``row_offset`` makes a block draw the selection key
+and the rounding noise of the same rows of the whole problem, and
+``col_psum``/``dg_reduce``/``axis_psum`` sum its column products, gate
+scalars and implied load over the blocks. Left at None they change
+nothing.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ def topk_candidates(
     feasible: torch.Tensor,
     k: int,
     seed: int | None = None,
+    row_offset: int | None = None,
 ):
     """Gather each row's K cheapest instances from the assembled cost.
 
@@ -91,11 +99,14 @@ def topk_candidates(
     the gathered columns). Selection is by noisy cost (GATHER_TAU Gumbel
     at a salted counter; ``seed=None`` disables it); the INFEASIBLE
     penalty drowns the noise, so feasible candidates always sort first.
+    ``row_offset`` is the global index of C's first row when C is a block
+    of rows of a larger problem.
     """
     k = min(k, C.shape[1])
     noised = seed is not None
     salted = 0 if seed is None else (int(seed) ^ _GATHER_SALT) & 0xFFFFFFFF
-    x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device)
+    x_row = cuda_sparse.noise_row_state(C.shape[0], salted, C.device,
+                                        row_offset)
     # Ties (equal keys: no noise, or the coarse INFEASIBLE penalty) go to
     # the lower column, as jax.lax.top_k breaks them.
     sel = cuda_sparse.select_candidates(C, x_row, k, tau=GATHER_TAU,
@@ -121,6 +132,8 @@ def sparse_sinkhorn(
     g0: torch.Tensor | None = None,
     tol: float = 0.0,
     chunk: int = 4,
+    col_psum=None,
+    dg_reduce=None,
 ) -> SinkhornResult:
     """Semi-unbalanced Sinkhorn over the masked candidate set (rows are
     equalities, columns caps via g <= 0). Each iteration is
@@ -134,6 +147,11 @@ def sparse_sinkhorn(
     never built. The mask comes packed from the gather; up to
     ``FUSED_MAX_COLS`` columns an iteration's two products are one fused
     pass over C (``masked_sinkhorn_step``), wider they run back to back.
+
+    On a block of rows of a sharded problem, ``col_psum`` sums the column
+    products and the marginal error's sums over the blocks, and
+    ``dg_reduce`` makes the warm probe's scalar the same on every shard
+    (``gated_sinkhorn_loop``).
     """
     row_mass = row_mass.to(torch.float32)
     col_mass = col_mass.to(torch.float32)
@@ -150,11 +168,12 @@ def sparse_sinkhorn(
         """r = max(P @ v, tiny) and c = (a / r) @ P."""
         if one_pass:
             return cuda_sparse.masked_sinkhorn_step(
-                C, bits, rowmin, v, row_mass, eps=eps
+                C, bits, rowmin, v, row_mass, eps=eps, col_psum=col_psum
             )
         r = row_terms(v)
         u = row_mass / r                           # exp((f - rowmin) / eps)
-        return r, cuda_sparse.masked_col_matvec(C, bits, rowmin, u, eps=eps)
+        return r, cuda_sparse.masked_col_matvec(C, bits, rowmin, u, eps=eps,
+                                                col_psum=col_psum)
 
     def run_iters(f, g, length):
         for _ in range(length):
@@ -168,11 +187,14 @@ def sparse_sinkhorn(
     def marginal_err(f, g):
         row_sum = torch.exp((f - rowmin) / eps) * row_terms(torch.exp(g / eps))
         num = (row_sum - row_mass).abs().sum()
-        return num / torch.clamp_min(row_mass.sum(), _TINY)
+        den = row_mass.sum()
+        if col_psum is not None:
+            num, den = col_psum(num), col_psum(den)
+        return num / torch.clamp_min(den, _TINY)
 
     return run_sinkhorn(
         run_iters, marginal_err, C.shape[0], g0, log_b,
-        eps=eps, iters=iters, tol=tol, chunk=chunk,
+        eps=eps, iters=iters, tol=tol, chunk=chunk, dg_reduce=dg_reduce,
     )
 
 
@@ -190,12 +212,15 @@ def sparse_auction(
     price0: torch.Tensor | None = None,
     sel_k: int = MAX_COPIES,
     load_impl: str = "auto",
+    axis_psum=None,
 ) -> AuctionResult:
     """Price repair over a fixed candidate set (``price_repair``, with the
     reference's best-iterate tracking, warm probe and stall gates); every
     selection, the epilogue's included, is within the candidates.
     ``load_impl`` as ``auction.resolve_load_impl`` resolves it on the
-    problem's device."""
+    problem's device. On a block of rows of a sharded problem,
+    ``axis_psum`` sums the implied load and the total demand over the
+    blocks."""
     num_instances = capacity.shape[0]
     load_impl = resolve_load_impl(load_impl, capacity.device)
     cap = torch.clamp_min(capacity.to(torch.float32), 1e-6)
@@ -206,7 +231,8 @@ def sparse_auction(
         # Slots past sel_k are padding (never valid): skip them. The
         # fixed-order kernel takes the slice by its row stride.
         return _implied_load(
-            idx[:, :nsel], valid[:, :nsel], sizes, num_instances, load_impl
+            idx[:, :nsel], valid[:, :nsel], sizes, num_instances, load_impl,
+            col_psum=axis_psum,
         )
 
     def select(price):
@@ -215,7 +241,7 @@ def sparse_auction(
     return price_repair(
         lambda _price: select, select, implied_load, sizes, copies, cap,
         iters=iters, eta=eta, final_select=final_select,
-        stall_tol=stall_tol, price0=price0,
+        stall_tol=stall_tol, price0=price0, axis_psum=axis_psum,
     )
 
 
@@ -239,12 +265,15 @@ def check_sparse_config(config) -> None:
 
 def perturb_gathered(
     logits_k: torch.Tensor, idx_k: torch.Tensor, feas_k: torch.Tensor,
-    tau: float, seed: int,
+    tau: float, seed: int, row_offset: int | None = None,
 ) -> torch.Tensor:
-    """Noise + feasibility mask for gathered plan logits."""
+    """Noise + feasibility mask for gathered plan logits; rows count from
+    ``row_offset`` (mod 2**32), as ``topk_candidates``' do."""
     scores = logits_k.to(torch.float32)
     if tau > 0:
         rows = torch.arange(idx_k.shape[0], device=idx_k.device)[:, None]
+        if row_offset:
+            rows = (rows + int(row_offset)) & 0xFFFFFFFF
         scores = scores + tau * hash_gumbel_at(rows, idx_k, seed)
     return torch.where(feas_k, scores, _NEG_INF)
 

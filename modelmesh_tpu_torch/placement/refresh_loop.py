@@ -44,7 +44,9 @@ Differences from the reference:
   resolves to False and ``donate=True`` raises, as
   ``dispatch_solve(donate=True)`` does. (The reference also turns it off
   whenever the incremental path is enabled.)
-- **No mesh.** The port's strategy has none.
+- **Mesh.** A strategy with a mesh dispatches its full solves sharded
+  (``dispatch_solve(mesh=...)``); its incremental path is off, so no base
+  is frozen, as in the reference.
 
 Not thread-safe per instance (the leader's refresh task is one loop);
 plan installation is atomic, so request threads read concurrently.
@@ -163,7 +165,7 @@ class PipelinedRefresher:
                 warm_g, warm_price = strat._epoch_carries_locked(delta)
                 strat._generation += 1
                 pending = dispatch_solve(
-                    cols, seed=strat._seed,
+                    cols, seed=strat._seed, mesh=strat.mesh,
                     warm_g=None if carry else warm_g,
                     warm_price=None if carry else warm_price,
                     config=strat.solve_config, carry=carry,
@@ -259,7 +261,7 @@ class PipelinedRefresher:
                         INCREMENTAL_OVERFLOW_FRAC * 100,
                     )
                     strat._base = None
-        elif not consumed:
+        elif strat.mesh is None and not consumed:
             # Re-freeze the base from this full solve's device tensors,
             # unless the flight now in the air is incremental: it merged
             # into (and advanced) the existing base, and this older full

@@ -14,6 +14,11 @@ answers placement decisions from the plan, with a fallback strategy
 behind it. Plans are advisory: the serving layer's local guards stay
 authoritative.
 
+With a ``parallel.mesh`` mesh, ``dispatch_solve`` builds each shard's
+block of the padded problem on its own device and runs the sharded solve
+(``parallel/sharded_solver.py``); the strategy then keeps the incremental
+path off, as the reference does.
+
 Differences from the reference: the solve's convergence gates run on the
 host, so ``dispatch_solve`` returns after the solve's last gate decision
 (only the tail of the solve is still in flight; the incremental path has
@@ -22,8 +27,8 @@ behind the solve, and ``finalize_plan`` waits on that copy's event, so it
 does not wait for a solve dispatched after it (the pipelined refresher,
 ``placement/refresh_loop.py``). Every host sync on the path is counted
 (``device.host_syncs``) and reported per solve in
-``plan.stats["host_syncs"]``. Meshes and buffer donation are not ported
-and raise; the device ``carry`` is accepted.
+``plan.stats["host_syncs"]``. Buffer donation has no PyTorch port and
+raises; the device ``carry`` is accepted.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from modelmesh_tpu_torch.ops.solve import (
     solve_placement_incremental,
 )
 from modelmesh_tpu_torch.ops.sparse import resolve_sparse_impl
+from modelmesh_tpu_torch.parallel import mesh as mesh_mod
+from modelmesh_tpu_torch.parallel.sharded_solver import make_sharded_solver
 from modelmesh_tpu_torch.placement.strategy import (
     LOAD_HERE,
     ClusterView,
@@ -378,9 +385,9 @@ def _bucket(x: int, floor: int = 256) -> int:
     return three_q if x <= three_q else p
 
 
-def _expand_problem_device(cols: ProblemColumns, device) -> PlacementProblem:
-    """Build the bucket-padded PlacementProblem on ``device``. Padded rows
-    are inert (sizes=0, copies=0), padded columns too (placeable=False ->
+def _padded_host(cols: ProblemColumns) -> dict:
+    """The bucket-padded host arrays ``_assemble`` takes. Padded rows are
+    inert (sizes=0, copies=0), padded columns too (placeable=False ->
     infeasible, free capacity 0); rates/busy/lru_age pad with their real
     minimum so the min-max norms of the real entries do not move. The
     COO pairs index real rows and columns only, so they need no padding."""
@@ -415,10 +422,54 @@ def _expand_problem_device(cols: ProblemColumns, device) -> PlacementProblem:
         zone=padv(cols.zone, m_p, 0),
         placeable=padv(cols.placeable, m_p, False),
     )
-    return _assemble(
-        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-           for k, v in host.items()}
-    )
+    return host
+
+
+def _to_device(host: dict, device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host.items()}
+
+
+def _expand_problem_device(cols: ProblemColumns, device) -> PlacementProblem:
+    """Build the bucket-padded PlacementProblem on ``device``
+    (``_padded_host``)."""
+    return _assemble(**_to_device(_padded_host(cols), device))
+
+
+# The axis each of ``_padded_host``'s per-model and per-instance arrays is
+# split on (the type masks are [T, M]: their columns split on inst).
+_HOST_AXES = {
+    "sizes": mesh_mod.MODEL_AXIS, "copies": mesh_mod.MODEL_AXIS,
+    "rates": mesh_mod.MODEL_AXIS, "type_idx": mesh_mod.MODEL_AXIS,
+    "capacity": mesh_mod.INSTANCE_AXIS, "reserved": mesh_mod.INSTANCE_AXIS,
+    "lru_age": mesh_mod.INSTANCE_AXIS, "busy": mesh_mod.INSTANCE_AXIS,
+    "zone": mesh_mod.INSTANCE_AXIS, "placeable": mesh_mod.INSTANCE_AXIS,
+}
+
+
+def _expand_problem_blocks(cols: ProblemColumns, mesh) -> list:
+    """Each shard's block of the bucket-padded problem, built on the
+    shard's device from its slice of the host columns and the COO pairs
+    that fall in it: no device holds the full [N, M] masks. Blocks in
+    rank order (what ``sharded_solver.shard_problem`` gives for the
+    padded problem)."""
+    host = _padded_host(cols)
+    n_pad, m_pad = len(host["sizes"]), len(host["capacity"])
+    rows, ccols = host["rows"], host["ccols"]
+    blocks = []
+    for rank in range(mesh.size):
+        r0, r1 = mesh.block_range(rank, mesh_mod.MODEL_AXIS, n_pad)
+        c0, c1 = mesh.block_range(rank, mesh_mod.INSTANCE_AXIS, m_pad)
+        lo = {mesh_mod.MODEL_AXIS: r0, mesh_mod.INSTANCE_AXIS: c0}
+        hi = {mesh_mod.MODEL_AXIS: r1, mesh_mod.INSTANCE_AXIS: c1}
+        block = {k: host[k][lo[ax]:hi[ax]] for k, ax in _HOST_AXES.items()}
+        inside = (rows >= r0) & (rows < r1) & (ccols >= c0) & (ccols < c1)
+        block["rows"] = rows[inside] - r0
+        block["ccols"] = ccols[inside] - c0
+        block["req_masks"] = host["req_masks"][:, c0:c1]
+        block["pref_masks"] = host["pref_masks"][:, c0:c1]
+        blocks.append(_assemble(**_to_device(block, mesh.devices[rank])))
+    return blocks
 
 
 def _assemble(sizes, copies, rates, rows, ccols, type_idx, req_masks,
@@ -620,7 +671,9 @@ class GlobalPlan:
             return len(self._placements)
         return len(self._columnar[0])
 
-    def _ensure_index(self) -> None:
+    def ensure_index(self) -> None:
+        """Build the lookup index now (the plan follower does, in its
+        watch thread, so the first routed request does not pay for it)."""
         if self._columnar is not None and self._index is None:
             model_ids, counts, _, _ = self._columnar
             off = np.zeros(len(model_ids) + 1, np.int64)
@@ -633,7 +686,7 @@ class GlobalPlan:
         """Targets for one model (no full dict needed)."""
         if self._placements is not None:
             return self._placements.get(model_id)
-        self._ensure_index()
+        self.ensure_index()
         row = self._index.get(model_id)
         if row is None:
             return None
@@ -641,6 +694,29 @@ class GlobalPlan:
         start = int(self._offsets[row])
         end = start + int(counts[row])
         return [inst_ids[j] for j in flat[start:end].tolist()]
+
+    def truncate(self, keep: int) -> "GlobalPlan":
+        """The first ``keep`` models (hottest first), for the publisher's
+        byte-budget trim. The columnar form keeps only the instances the
+        kept rows use, re-indexed, so the payload really shrinks."""
+        if self._columnar is not None:
+            model_ids, counts, flat, inst_ids = self._columnar
+            cut = int(np.sum(counts[:keep], dtype=np.int64))
+            flat_cut = flat[:cut]
+            used = np.unique(flat_cut)
+            plan = GlobalPlan.from_columnar(
+                model_ids[:keep], counts[:keep],
+                np.searchsorted(used, flat_cut),
+                [inst_ids[int(j)] for j in used],
+                self.solved_at_ms, self.solve_ms, self.generation,
+            )
+        else:
+            items = list(self._placements.items())[:keep]
+            plan = GlobalPlan(
+                dict(items), self.solved_at_ms, self.solve_ms, self.generation
+            )
+        plan.adopted_at_ms = self.adopted_at_ms
+        return plan
 
     def age_ms(self) -> int:
         """Milliseconds since this plan was adopted locally (plans expire
@@ -796,17 +872,30 @@ def dispatch_solve(
     and the noise epoch (``TorchPlacementStrategy``) and check the merged
     overflow after finalizing.
 
+    With ``mesh`` (a ``parallel.mesh.Mesh``) the solve is sharded
+    (``parallel/sharded_solver.py``): each shard's block of the padded
+    problem is built on its own device from the host columns, the mesh
+    must divide the padded problem (``ValueError`` otherwise), the joined
+    result lands on the mesh's first device, and the path is
+    "sharded-sparse" or "sharded". A mesh of another type raises
+    ``NotImplementedError``, and so does ``donate`` (PyTorch has no buffer
+    donation).
+
     ``device=None`` means the first CUDA device, and raises without one
-    (``device.resolve_device``). Warm starts, in order of preference:
-    ``carry`` as (g0, price0) tensors already padded and column-aligned on
-    the device; else the ``warm_g``/``warm_price`` per-instance-id dicts
-    of the previous plan (instances unknown to them start cold); else
-    zeros. ``mesh`` and ``donate`` are not ported and raise."""
-    if mesh is not None:
-        raise NotImplementedError("sharded solve: ROADMAP queue 1")
+    (``device.resolve_device``); with a mesh it means the mesh's first
+    device, and another device raises. Warm starts, in order of
+    preference: ``carry`` as (g0, price0) tensors already padded and
+    column-aligned on the device; else the ``warm_g``/``warm_price``
+    per-instance-id dicts of the previous plan (instances unknown to them
+    start cold); else zeros."""
+    if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+        raise NotImplementedError(
+            f"mesh must be a modelmesh_tpu_torch.parallel.mesh.Mesh (got "
+            f"{type(mesh).__name__})"
+        )
     if donate:
         raise NotImplementedError("buffer donation has no PyTorch port")
-    dev = device_mod.resolve_device(device)
+    dev = _solve_device(mesh, device)
     syncs0 = device_mod.host_syncs
     t_start = time.perf_counter() if t_start is None else t_start
     t_snapshot = time.perf_counter() if t_snapshot is None else t_snapshot
@@ -817,6 +906,8 @@ def dispatch_solve(
     cfg = SolveConfig() if config is None else config
 
     if base is not None and dirty_rows is not None:
+        if mesh is not None:
+            raise ValueError("incremental re-solve requires mesh=None")
         if base.indices.shape[0] != n_pad or base.g.shape[0] != m_pad:
             raise ValueError(
                 "SolveBase shapes do not match the padded problem "
@@ -866,17 +957,45 @@ def dispatch_solve(
         init = SolveInit(g0=torch.from_numpy(g0).to(dev),
                          price0=torch.from_numpy(price0).to(dev))
         warm = bool(warm_g)
-    problem = _expand_problem_device(cols, dev)
-    sol = solve_placement(problem, config=cfg, seed=seed, init=init)
+    if mesh is not None:
+        n_mdl = mesh.shape[mesh_mod.MODEL_AXIS]
+        n_inst = mesh.shape[mesh_mod.INSTANCE_AXIS]
+        if n_pad % n_mdl or m_pad % n_inst:
+            raise ValueError(
+                f"mesh {dict(mesh.shape)} does not divide the padded problem "
+                f"[{n_pad}, {m_pad}]"
+            )
+        sol = make_sharded_solver(mesh, cfg)(
+            _expand_problem_blocks(cols, mesh), seed=seed, g0=init.g0,
+            price0=init.price0,
+        )
+        path = "sharded-sparse" if sparse else "sharded"
+    else:
+        problem = _expand_problem_device(cols, dev)
+        sol = solve_placement(problem, config=cfg, seed=seed, init=init)
+        path = "sparse" if sparse else "dense"
     return PendingSolve(
         cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
-        warm=warm,
-        path="sparse" if sparse else "dense",
+        warm=warm, path=path,
         topk=cfg.topk if sparse else 0,
         impl_knob=impl_knob, impl=impl,
         dispatch_syncs=device_mod.host_syncs - syncs0,
         readback=_enqueue_readback(sol), t_dispatched=time.perf_counter(),
     )
+
+
+def _solve_device(mesh, device) -> torch.device:
+    """The device a dispatch solves on (and its result lands on):
+    ``device.resolve_device(device)``, or with a mesh the mesh's first
+    device, which ``device`` must name when given."""
+    if mesh is None:
+        return device_mod.resolve_device(device)
+    first = mesh.devices[0]
+    if device is not None and torch.device(device) != first:
+        raise ValueError(
+            f"device {device} is not the mesh's first device {first}"
+        )
+    return first
 
 
 def _compact_result(sol) -> torch.Tensor:
@@ -984,11 +1103,13 @@ def solve_plan(
     warm_price: Optional[Mapping[str, float]] = None,
     cols: Optional[ProblemColumns] = None,
     *,
+    mesh=None,
     device=None,
 ) -> GlobalPlan:
     """One global solve -> GlobalPlan (blocking): snapshot (unless
-    ``cols`` is given), ``dispatch_solve`` on ``device``, then
-    ``finalize_plan``. Stage timings land in ``plan.stats``."""
+    ``cols`` is given), ``dispatch_solve`` on ``device`` (or sharded over
+    ``mesh``), then ``finalize_plan``. Stage timings land in
+    ``plan.stats``."""
     if not models or not instances:
         return GlobalPlan({}, now_ms(), 0.0)
     t0 = time.perf_counter()
@@ -998,10 +1119,24 @@ def solve_plan(
         )
     t1 = time.perf_counter()
     pending = dispatch_solve(
-        cols, seed=seed, warm_g=warm_g, warm_price=warm_price,
+        cols, seed=seed, mesh=mesh, warm_g=warm_g, warm_price=warm_price,
         config=config, t_start=t0, t_snapshot=t1, device=device,
     )
     return finalize_plan(pending)
+
+
+def auto_mesh():
+    """The strategy's ``mesh="auto"``: the largest power-of-two set of CUDA
+    devices, all on the model axis (bucket-padded shapes are 2^k or
+    3 * 2^k, so a power-of-two axis divides them), or None when that is
+    one device or none."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    usable = 1 << (count.bit_length() - 1) if count else 0
+    if usable <= 1:
+        return None
+    return mesh_mod.make_mesh(
+        devices=[torch.device("cuda", i) for i in range(usable)]
+    )
 
 
 class TorchPlacementStrategy(PlacementStrategy):
@@ -1022,8 +1157,11 @@ class TorchPlacementStrategy(PlacementStrategy):
 
     - ``device=None`` means ``cuda:0`` and raises without a CUDA device
       (``device.resolve_device``); ``device="cpu"`` runs the plain
-      versions.
-    - ``mesh`` must be ``None``: the sharded solve is not ported.
+      versions. With a mesh it means the mesh's first device.
+    - ``mesh``: None solves on ``device``; a ``parallel.mesh.Mesh``
+      shards every refresh over it, with the incremental path off, as in
+      the reference; "auto" takes the largest power-of-two set of CUDA
+      devices, and None when that is one device (or none).
     - The locks are plain ``threading.Lock``s.
     - ``fallback`` is required: the reference's default greedy strategy
       lives in the serving layer, which the port does not import, so
@@ -1046,14 +1184,20 @@ class TorchPlacementStrategy(PlacementStrategy):
                 "reference's default (the greedy strategy) belongs to the "
                 "serving layer, which the port does not import"
             )
-        if mesh is not None:
-            raise NotImplementedError("sharded solve: ROADMAP queue 1")
+        if mesh == "auto":
+            mesh = auto_mesh()
+        if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+            raise NotImplementedError(
+                f"mesh must be a modelmesh_tpu_torch.parallel.mesh.Mesh, "
+                f"'auto' or None (got {type(mesh).__name__})"
+            )
+        self.mesh = mesh
         self.plan_ttl_ms = plan_ttl_ms
         self.fallback = fallback
         # Type constraints (duck-typed is_candidate/is_preferred) the
         # solves honor.
         self.constraints = constraints
-        self.device = device_mod.resolve_device(device)
+        self.device = _solve_device(mesh, device)
         # "env" -> MM_SOLVER_* knobs; None -> the defaults; or a config.
         if solve_config == "env":
             cfg = solve_config_from_env()
@@ -1180,7 +1324,8 @@ class TorchPlacementStrategy(PlacementStrategy):
 
     def _incremental_rows_locked(self, cols, delta, dm, di):
         """Dirty row ids for an incremental re-solve, or None for a full
-        solve: after a full rebuild or without a base; when the base's
+        solve: on a mesh; after a full rebuild or without a base; when the
+        base's
         seed or padded shapes differ; when any instance is dirty (column
         churn moves every row's costs); under threefry noise; and when the
         dirty-model fraction exceeds ``incr_max_dirty_frac``. Clean rows
@@ -1189,7 +1334,7 @@ class TorchPlacementStrategy(PlacementStrategy):
         base = self._base
         if (
             not delta or base is None or di or not dm
-            or self.incr_max_dirty_frac <= 0
+            or self.mesh is not None or self.incr_max_dirty_frac <= 0
             or base.seed != self._seed
         ):
             return None
@@ -1254,8 +1399,9 @@ class TorchPlacementStrategy(PlacementStrategy):
             self._base = None
         warm_g, warm_price = self._epoch_carries_locked(delta)
         pending = dispatch_solve(
-            cols, seed=self._seed, warm_g=warm_g, warm_price=warm_price,
-            config=self.solve_config, t_start=t0, device=self.device,
+            cols, seed=self._seed, mesh=self.mesh, warm_g=warm_g,
+            warm_price=warm_price, config=self.solve_config, t_start=t0,
+            device=self.device,
         )
         plan = finalize_plan(pending)
         sol = pending.sol
@@ -1290,7 +1436,7 @@ class TorchPlacementStrategy(PlacementStrategy):
                     models, instances, rpm_fn, seed=self._seed,
                     constraints=self.constraints, warm_g=self._warm_g,
                     config=self.solve_config, warm_price=self._warm_price,
-                    device=self.device,
+                    mesh=self.mesh, device=self.device,
                 )
             # Keep the carries across empty-snapshot blips.
             if plan.warm_g is not None:

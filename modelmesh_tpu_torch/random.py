@@ -17,6 +17,7 @@ so the port reproduces:
   are the two output words XORed (cut to 8 or 16 bits for a narrower
   draw);
   ``split(key, n)`` hashes the counters 0..n-1 and keeps both words;
+  ``fold_in(key, data)`` hashes the pair ``(0, data)``;
 - ``uniform``: the top mantissa bits under exponent 0, minus 1, scaled and
   clamped in the draw's dtype, rounded as XLA rounds (each step in bf16,
   one fused multiply-add in f32);
@@ -132,6 +133,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     hi, lo = _counters((num,), "cpu")
     b0, b1 = threefry2x32(key, hi, lo)
     return torch.stack([b0, b1], dim=1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: threefry2x32 of ``key`` over the
+    seed words of ``data`` (``[0, data mod 2**32]``), int64[2] on the
+    CPU."""
+    b0, b1 = threefry2x32(key, torch.tensor([0], dtype=torch.int64),
+                          torch.tensor([int(data) & MASK32],
+                                       dtype=torch.int64))
+    return torch.cat([b0, b1])
 
 
 def random_bits(key: torch.Tensor, bit_width: int, shape,

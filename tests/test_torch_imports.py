@@ -72,3 +72,25 @@ def test_chip_smoke_alone_fails(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_mesh_modules_import_neither_jax_nor_the_jax_package():
+    """The mesh and the sharded solver are in the walk above; in a fresh
+    interpreter they load no jax and start no thread."""
+    probe = (
+        "import json, sys, threading\n"
+        "import modelmesh_tpu_torch.parallel.mesh as m\n"
+        "import modelmesh_tpu_torch.parallel.sharded_solver\n"
+        "print(json.dumps({'jax': sorted(k for k in sys.modules if "
+        "k == 'jax' or k.startswith('jax.') or k == 'modelmesh_tpu' or "
+        "k.startswith('modelmesh_tpu.')), "
+        "'threads': threading.active_count()}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"jax": [], "threads": 1}

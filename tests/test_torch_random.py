@@ -220,3 +220,14 @@ def test_key_and_dtype_validation():
         prng.random_bits(prng.PRNGKey(0), 64, (3,), "cpu")
     with pytest.raises(TypeError):
         prng.normal(prng.PRNGKey(0), (3,), torch.float16, device="cpu")
+
+
+@pytest.mark.parametrize("seed", [0, 0x5EED, 0xFFFFFFFF])
+@pytest.mark.parametrize("data", [0, 3, 0x9E3779B9])
+def test_fold_in(seed, data):
+    """``fold_in`` bit for bit ``jax.random.fold_in`` (the sharded dense
+    solve folds each shard's index into its threefry key)."""
+    want = np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed), data))
+    got = prng.fold_in(prng.PRNGKey(seed), data)
+    assert got.dtype == torch.int64 and got.shape == (2,)
+    assert got.tolist() == want.astype(np.int64).tolist()
