@@ -175,6 +175,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              and equal to solo calls bit for bit, and a load from a CPU
              loader's weight stream.
 
+12. runtime_mesh — the model runtime across a mesh of 8 shards, every
+             shard on this card with one worker thread each (as phase
+             sharded); no custom kernel runs here (the launch counters are
+             zeroed before it and read after: all 0). (a) Ring attention
+             (parallel/ring_attention.py) at [1, 2, 128, 8], [2, 4, 128, 32]
+             and [1, 4, 8192, 32], causal and not, f32 and bf16: against
+             reference_attention on the card (f32 2e-5, bf16 3e-2, TF32
+             off), the f32 rings against the same ring on 8 CPU shards
+             (2e-5; the long sequence causal only), 2·(n−1) = 14 ppermutes
+             a call from the mesh's counter; the ring's and the oracle's
+             wall ms. (b) The expert-parallel FFN (parallel/moe.py), 16
+             experts over 8 shards at d=32, ff=64, T=128 and d=128,
+             ff=512, T=4096: every shard's routing (expert, slot, drop)
+             bit for bit the dense oracle's group on the card, outputs at
+             rtol 1e-5 / atol 1e-5·max|oracle|, 2 all_to_alls a call;
+             wall ms beside the oracle's. (c) The sp=1 and ep=1
+             transformers (seq=128,sp=1; d=64,heads=4,seq=128,layers=2,
+             sp=1; experts=16,groups=8,ep=1; d=64,heads=4,seq=64,layers=2,
+             experts=16,groups=8,ep=1) served over gRPC by
+             start_torch_runtime(device="cuda:0", devices=["cuda:0"] * 8)
+             and by InProcessTorchLoader(devices=...): logits against the
+             same spec on one device (0.08, the reference's) and on 8 CPU
+             shards (1e-2, where every token routes as on the CPU; a token
+             routed otherwise must be a near-tie), the collectives of one
+             Predict (the ring's ppermutes or the exchange's all_to_alls,
+             per layer); Predict median and maximum of 50 beside the
+             one-device model's. (d) The serving mesh: transformer:// and
+             mlp:// through load_shard over 1, 4 and 8 shards: 1 shard bit
+             for bit the plain load, 4 and 8 within 1e-5; the bytes each
+             shard holds equal its blocks plus the replicated leaves, each
+             split block in storage of its own, the reported share
+             ceil(total/n); a shard's export_shard_weights ->
+             load_shard_from_stream round trip byte for byte; Predict ms
+             against the plain load. (e) The mesh's own cost: an empty
+             run, 14 ppermutes, the same with one device op each, a small
+             ring (mesh_costs).
+
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
@@ -2349,8 +2386,9 @@ def phase_sharded_cards() -> list:
     The main fleet on cuda:0 alone, then on meshes 4x1 and 2x2 over
     cuda:0-3, the sparse path and pinned dense: the sparse shapes and the
     dense whole-row mesh byte for byte the single-device placement, every
-    shape agreement >= 0.97 and overflow within 0.5% of demand. Prints
-    every card's name and power limit."""
+    shape agreement >= 0.97 and overflow within 0.5% of demand. Then the
+    model runtime across the cards (``runtime_mesh_cards``). Prints every
+    card's name and power limit."""
     check(torch.cuda.is_available() and torch.cuda.device_count() >= CARDS,
           f"phase_sharded_cards needs {CARDS} CUDA devices")
     devices = [torch.device("cuda", i) for i in range(CARDS)]
@@ -2364,7 +2402,28 @@ def phase_sharded_cards() -> list:
     runs = cards_run("sparse", cols, devices)
     with dense_pin():
         runs += cards_run("dense", cols, devices)
+    runs.append(runtime_mesh_cards(devices))
     return runs
+
+
+def runtime_mesh_cards(devices) -> dict:
+    """Phase runtime_mesh's (a), (b) and (d) with one shard on each of
+    ``devices``, where the ring's ppermutes, the all_to_alls and the
+    split weights cross cards: the ring against the oracle on the first
+    card and the same ring on as many CPU shards, the expert-parallel FFN
+    against the oracle, and load_sharded over the cards against the plain
+    load on the first."""
+    t0 = time.perf_counter()
+    meshes = runtime_meshes(devices)
+    cpu_meshes = runtime_meshes(["cpu"] * len(devices))
+    result = {"phase": "runtime_mesh_cards",
+              "devices": [str(d) for d in devices],
+              "ring": mesh_ring(devices[0], meshes, cpu_meshes),
+              "expert_parallel": mesh_ep(devices[0], meshes),
+              "serving_mesh": mesh_serving(devices[0], [devices]),
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    return result
 
 
 def model_input(model, rows: int, seed: int) -> np.ndarray:
@@ -2393,20 +2452,26 @@ def check_close(got: np.ndarray, want: np.ndarray, tol, what: str) -> float:
 @contextlib.contextmanager
 def moe_routes():
     """Record the port's MoE routing while the block runs: per ``_route``
-    call, its device, each token's expert (-1 when dropped) and the
+    call, keyed by (its shard's rank, -1 outside a mesh; the calls that
+    shard made before it), each token's expert (-1 when dropped) and the
     top-2 probability margin."""
-    from modelmesh_tpu_torch.parallel import moe
+    import threading
 
-    rec = []
-    route = moe._route
+    from modelmesh_tpu_torch.parallel import mesh, moe
+
+    rec, lock, route = {}, threading.Lock(), moe._route
 
     def recording(x, router, n_experts, capacity):
         dispatch, gate = route(x, router, n_experts, capacity)
         top2 = torch.softmax(x.float() @ router.float(), -1).topk(2).values
         kept = dispatch.sum((1, 2)) > 0
         expert = torch.where(kept, dispatch.sum(2).argmax(1), -1)
-        rec.append((x.device.type, expert.cpu().numpy(),
-                    (top2[:, 0] - top2[:, 1]).cpu().numpy()))
+        ctx = getattr(mesh._local, "ctx", None)
+        rank = -1 if ctx is None else ctx.rank
+        with lock:
+            calls = sum(1 for key in rec if key[0] == rank)
+            rec[(rank, calls)] = (expert.cpu().numpy(),
+                                  (top2[:, 0] - top2[:, 1]).cpu().numpy())
         return dispatch, gate
 
     moe._route = recording
@@ -2416,14 +2481,16 @@ def moe_routes():
         moe._route = route
 
 
-def moe_flips(card_rec: list, cpu_rec: list, path: str) -> list:
+def moe_flips(card_rec: dict, cpu_rec: dict, path: str) -> list:
     """The tokens whose expert differs between the card's and the CPU's
-    routing, with the CPU's top-2 margin; each must be a near-tie."""
-    check(len(card_rec) == len(cpu_rec) and len(cpu_rec) > 0,
+    routing, with the CPU's top-2 margin, in call order (a shard's calls
+    are its layers); each of the first differing call's must be a
+    near-tie."""
+    check(sorted(card_rec) == sorted(cpu_rec) and len(cpu_rec) > 0,
           f"{path}: {len(card_rec)} / {len(cpu_rec)} routing calls")
     flips = []
-    for call, ((_, e_gpu, _), (_, e_cpu, margin)) in enumerate(
-            zip(card_rec, cpu_rec)):
+    for call, key in enumerate(sorted(cpu_rec, key=lambda k: (k[1], k[0]))):
+        (e_gpu, _), (e_cpu, margin) = card_rec[key], cpu_rec[key]
         for tok in np.nonzero(e_gpu != e_cpu)[0]:
             flips.append({"call": call, "token": int(tok),
                           "card": int(e_gpu[tok]), "cpu": int(e_cpu[tok]),
@@ -2486,7 +2553,7 @@ def serve_families(dev, card: str) -> dict:
             with moe_routes() as rec:
                 out = np.frombuffer(predict(x.tobytes(), metadata=md,
                                             timeout=60), np.float32)
-                card_rec = list(rec)
+                card_rec = dict(rec)
                 rec.clear()
                 want = cpu.run(x).reshape(-1)
             flips = moe_flips(card_rec, rec, path) if moe else []
@@ -2518,7 +2585,8 @@ def serve_families(dev, card: str) -> dict:
                 served[path].update(
                     batch_safe=model.batch_safe,
                     routing_calls=len(card_rec),
-                    tokens_routed=int(sum(len(r[1]) for r in card_rec)),
+                    tokens_routed=int(sum(len(r[0])
+                                          for r in card_rec.values())),
                     routing_flips=flips)
                 check(not model.batch_safe, f"{path}: batch_safe")
         return {"runtime_version": status.runtime_version,
@@ -2685,6 +2753,433 @@ def phase_models(dev, card: str) -> dict:
     return result
 
 
+# The model runtime across a mesh (phase runtime_mesh): every shard on
+# the card, one worker thread each, as phase sharded.
+MESH_SHARDS = 8
+# Ring attention [B, H, S, D]: the reference's multichip dry run, the
+# transformer's default width (d=128, 4 heads) at the longest sequence
+# the repo's tests serve, and a long context (blocks of 1024).
+RING_SHAPES = {"dryrun": (1, 2, 128, 8), "transformer": (2, 4, 128, 32),
+               "long": (1, 4, 8192, 32)}
+# The reference's gates (tests/test_ring_attention.py), with TF32 off.
+RING_TOL = {"f32": 2e-5, "bf16": 3e-2}
+RING_REPS = 5
+# The expert-parallel FFN (d, ff, experts, tokens): the dry run's, and the
+# transformer's default width with 16 experts at 4096 tokens.
+EP_SHAPES = {"dryrun": (32, 64, 16, 128), "transformer": (128, 512, 16, 4096)}
+EP_TOL = (1e-5, 1e-5)
+# The families on the mesh, through the runtime's entry points.
+MESH_SPECS = [
+    "transformer://seq=128,sp=1",
+    "transformer://d=64,heads=4,seq=128,layers=2,sp=1",
+    "transformer://experts=16,groups=8,ep=1",
+    "transformer://d=64,heads=4,seq=64,layers=2,experts=16,groups=8,ep=1",
+]
+MESH_ONE_DEVICE_TOL = (0.08, 0.08)      # tests/test_models.py:121,152
+MESH_CPU_TOL = (1e-2, 1e-2)             # FORWARD_TOL["transformer"]
+# The serving mesh: the default transformer and mlp split over 1, 4 and
+# 8 shards of the card.
+SERVING_MODELS = [("transformer", "transformer://"), ("mlp", "mlp://")]
+SERVING_SHARDS = (1, 4, 8)
+SERVING_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def runtime_meshes(devices) -> dict:
+    """The runtime's 1-D meshes over ``devices``: the ones the families
+    build on (one per axis and device list)."""
+    from modelmesh_tpu_torch.parallel import mesh
+
+    return {axis: mesh.axis_mesh(axis, devices) for axis in ("seq", "exp")}
+
+
+def collective_counts(meshes: dict) -> dict:
+    return {axis: dict(m.collectives) for axis, m in meshes.items()}
+
+
+def clear_collectives(meshes: dict) -> None:
+    for m in meshes.values():
+        m.collectives.clear()
+
+
+def wall_ms(fn, reps: int) -> list:
+    """Wall ms of ``fn`` (synchronized) over ``reps``, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def mesh_ring(dev, card_meshes: dict, cpu_meshes: dict) -> dict:
+    """(a) Ring attention on the card's mesh against the oracle on ``dev``
+    and the same ring on as many CPU shards."""
+    from modelmesh_tpu_torch.parallel import ring_attention as ra
+
+    n = card_meshes["seq"].size
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 50)
+    for tag, shape in RING_SHAPES.items():
+        qkv32 = [torch.randn(shape, generator=gen) for _ in range(3)]
+        for causal in (True, False):
+            ring = ra.make_ring_attention(card_meshes["seq"], shape[2],
+                                          causal=causal)
+            for dtype, dname in ((torch.float32, "f32"),
+                                 (torch.bfloat16, "bf16")):
+                q, k, v = (t.to(dtype).to(dev) for t in qkv32)
+                clear_collectives(card_meshes)
+                got = ring(q, k, v)
+                torch.cuda.synchronize()
+                counts = collective_counts(card_meshes)
+                check(counts == {"seq": {"ppermute": 2 * (n - 1)},
+                                 "exp": {}},
+                      f"ring {tag}: collectives {counts}")
+                want = ra.reference_attention(q, k, v, causal=causal)
+                tol = RING_TOL[dname]
+                err = max_abs(got.float(), want.float())
+                check(got.dtype == dtype and got.shape == want.shape
+                      and bool(torch.isfinite(got.float()).all())
+                      and torch.allclose(got.float(), want.float(),
+                                         rtol=tol, atol=tol),
+                      f"ring {tag} causal={causal} {dname}: {err} vs the "
+                      "oracle on the card")
+                rec = {"shape": list(shape), "causal": causal,
+                       "dtype": dname, "max_abs_err_vs_oracle": err,
+                       "ppermutes": counts["seq"]["ppermute"]}
+                if dname == "f32" and (causal or tag != "long"):
+                    cpu_ring = ra.make_ring_attention(
+                        cpu_meshes["seq"], shape[2], causal=causal)
+                    cpu = cpu_ring(*qkv32)
+                    cerr = max_abs(got.cpu(), cpu)
+                    check(torch.allclose(got.cpu(), cpu, rtol=tol, atol=tol),
+                          f"ring {tag} causal={causal}: {cerr} vs the "
+                          "8-shard CPU ring")
+                    rec["max_abs_err_vs_cpu_ring"] = cerr
+                if causal:
+                    rec["ring_ms"] = summary(
+                        wall_ms(lambda: ring(q, k, v), RING_REPS))
+                    rec["oracle_ms"] = summary(wall_ms(
+                        lambda: ra.reference_attention(q, k, v, causal),
+                        RING_REPS))
+                out[f"{tag}_{'causal' if causal else 'full'}_{dname}"] = rec
+    return out
+
+
+def mesh_ep(dev, card_meshes: dict) -> dict:
+    """(b) The expert-parallel FFN on the card's mesh against the dense
+    oracle with as many routing groups on ``dev``."""
+    from modelmesh_tpu_torch import random as prng
+    from modelmesh_tpu_torch.parallel import moe
+
+    n = card_meshes["exp"].size
+    out = {}
+    for tag, (d, ff, n_exp, tokens) in EP_SHAPES.items():
+        params = {k: v.to(dev) for k, v in moe.init_moe_params(
+            prng.PRNGKey(SEED + 60), d, ff, n_exp).items()}
+        x = torch.randn((tokens, d), generator=torch.Generator().manual_seed(
+            SEED + 61)).to(dev)
+        fn = moe.make_expert_parallel_ffn(card_meshes["exp"], n_exp)
+        clear_collectives(card_meshes)
+        with moe_routes() as rec:
+            got = fn(params, x)
+            torch.cuda.synchronize()
+            counts = collective_counts(card_meshes)
+            want = moe.reference_moe(params, x, n_exp, n_dev=n)
+        check(counts == {"seq": {}, "exp": {"all_to_all": 2}},
+              f"ep {tag}: collectives {counts}")
+        for g in range(n):
+            check(np.array_equal(rec[(g, 0)][0], rec[(-1, g)][0]),
+                  f"ep {tag}: shard {g} routes otherwise than the oracle")
+        dropped = int((want.abs().sum(1) == 0).sum())
+        check(bool(torch.equal(got.abs().sum(1) == 0, want.abs().sum(1) == 0)),
+              f"ep {tag}: dropped tokens differ")
+        err = check_close(got.cpu().numpy(), want.cpu().numpy(), EP_TOL,
+                          f"ep {tag}")
+        out[tag] = {
+            "d": d, "ff": ff, "experts": n_exp, "tokens": tokens,
+            "routing_equal": True, "dropped_tokens": dropped,
+            "max_err_vs_oracle": err, "all_to_alls": 2,
+            "ep_ms": summary(wall_ms(lambda: fn(params, x), RING_REPS)),
+            "oracle_ms": summary(wall_ms(
+                lambda: moe.reference_moe(params, x, n_exp, n_dev=n),
+                RING_REPS)),
+        }
+    return out
+
+
+def predict_times(predict, payload: bytes, md) -> dict:
+    lat = []
+    for _ in range(PREDICT_CALLS):
+        t = time.perf_counter()
+        predict(payload, metadata=md, timeout=60)
+        lat.append((time.perf_counter() - t) * 1e3)
+    return {"median": float(np.median(lat)), "max": float(np.max(lat))}
+
+
+def mesh_families(dev, card_meshes: dict) -> dict:
+    """(c) The sp/ep transformers through the runtime's entry points on the
+    card's 8-shard device list: the gRPC runtime (Load, Predict, Unload
+    through the port's stub) and the in-process loader; logits against the
+    same spec on one device and on 8 CPU shards; the collective counts of
+    each Predict."""
+    import grpc
+
+    from modelmesh_tpu_torch.models import families
+    from modelmesh_tpu_torch.models.server import (
+        PREDICT_METHOD,
+        InProcessTorchLoader,
+        start_torch_runtime,
+    )
+    from modelmesh_tpu_torch.proto import mesh_runtime_pb2 as rpb
+    from modelmesh_tpu_torch.runtime import grpc_defs
+    from modelmesh_tpu_torch.runtime.spi import ModelInfo
+
+    devices = [dev] * MESH_SHARDS
+    cpus = ["cpu"] * MESH_SHARDS
+    mesh_rt = start_torch_runtime(capacity_bytes=1 << 30, device=dev,
+                                  devices=devices)
+    one_rt = start_torch_runtime(capacity_bytes=1 << 30, device=dev)
+    channels = [grpc.insecure_channel(f"127.0.0.1:{rt[1]}")
+                for rt in (mesh_rt, one_rt)]
+    ld = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev,
+                              devices=devices)
+    out = {}
+    try:
+        stubs = [grpc_defs.make_stub(ch, grpc_defs.RUNTIME_SERVICE,
+                                     grpc_defs.RUNTIME_METHODS)
+                 for ch in channels]
+        predicts = [grpc_defs.raw_method(ch, PREDICT_METHOD)
+                    for ch in channels]
+        for path in MESH_SPECS:
+            mid = f"mesh-{path}"
+            info = rpb.ModelInfo(model_type="transformer", model_path=path)
+            sizes = [stub.LoadModel(rpb.LoadModelRequest(model_id=mid,
+                                                         info=info),
+                                    timeout=300).size_bytes
+                     for stub in stubs]
+            check(sizes[0] == sizes[1], f"{path}: sizes {sizes}")
+            md = ((grpc_defs.MODEL_ID_HEADER, mid),)
+            cpu = families.build_model(mid, "transformer", path,
+                                       device="cpu", devices=cpus)
+            x = model_input(cpu, 2, SEED + 70)
+            sp = "sp=1" in path
+            layers = len(cpu.params["blocks"])
+            rotations = 2 * (MESH_SHARDS - 1) * layers
+            want_counts = ({"seq": {"ppermute": rotations}, "exp": {}} if sp
+                           else {"seq": {}, "exp": {"all_to_all": 2 * layers}})
+            clear_collectives(card_meshes)
+            with moe_routes() as rec:
+                got = np.frombuffer(predicts[0](x.tobytes(), metadata=md,
+                                                timeout=60), np.float32)
+                counts = collective_counts(card_meshes)
+                card_rec = dict(rec)
+                rec.clear()
+                want_cpu = cpu.run(x).reshape(-1)
+            check(counts == want_counts,
+                  f"{path}: collectives of one Predict {counts}")
+            one = np.frombuffer(predicts[1](x.tobytes(), metadata=md,
+                                            timeout=60), np.float32)
+            err_one = check_close(got, one, MESH_ONE_DEVICE_TOL,
+                                  f"{path} vs one device")
+            flips = [] if sp else moe_flips(card_rec, rec, path)
+            # A token routed to another expert takes another FFN: the
+            # logits are held to the CPU's where routing agrees.
+            err_cpu = (None if flips else
+                       check_close(got, want_cpu, MESH_CPU_TOL,
+                                   f"{path} vs 8 CPU shards"))
+            one_bytes = model_input(cpu, 1, SEED + 71).tobytes()
+            times = {"mesh": predict_times(predicts[0], one_bytes, md),
+                     "one_device": predict_times(predicts[1], one_bytes, md)}
+            # The in-process loader on the same device list.
+            ld.load(mid, ModelInfo("transformer", path))
+            clear_collectives(card_meshes)
+            inproc = np.frombuffer(ld.call_model(mid, "", x.tobytes()),
+                                   np.float32)
+            check(collective_counts(card_meshes) == want_counts,
+                  f"{path}: in-process collectives")
+            check_close(inproc, one, MESH_ONE_DEVICE_TOL,
+                        f"{path} in-process vs one device")
+            for stub in stubs:
+                stub.UnloadModel(rpb.UnloadModelRequest(model_id=mid),
+                                 timeout=60)
+            ld.unload(mid)
+            out[path] = {
+                "size_bytes": sizes[0], "collectives_per_predict": counts,
+                "max_err_vs_one_device": err_one,
+                "max_err_vs_cpu_shards": err_cpu, "routing_flips": flips,
+                "inprocess_max_abs_vs_grpc": float(np.abs(inproc - got).max()),
+                "predict_ms": times,
+            }
+    finally:
+        for ch in channels:
+            ch.close()
+        for rt in (mesh_rt, one_rt):
+            rt[0].stop(0)
+    return out
+
+
+def mesh_serving(dev, device_lists=None) -> dict:
+    """(d) The serving mesh: load_sharded over each of ``device_lists``
+    (default: 1, 4 and 8 shards of ``dev``) against the plain load on
+    ``dev``, the bytes each shard holds, the share load_shard reports, and
+    a shard's stream round trip."""
+    from modelmesh_tpu_torch.models import families
+    from modelmesh_tpu_torch.models.server import InProcessTorchLoader
+    from modelmesh_tpu_torch.parallel import mesh
+    from modelmesh_tpu_torch.runtime.spi import ModelInfo
+
+    out = {}
+    for family, path in SERVING_MODELS:
+        info = ModelInfo(family, path)
+        plain = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev)
+        plain.load("m", info)
+        model = plain.store.get("m")
+        x = model_input(model, 2, SEED + 80).tobytes()
+        want = model.predict_bytes(x)
+        rec = {"size_bytes": model.size_bytes,
+               "plain_predict_ms": summary(wall_ms(
+                   lambda: model.predict_bytes(x), PREDICT_CALLS))}
+        for devices in device_lists or [[dev] * n for n in SERVING_SHARDS]:
+            n = len(devices)
+            ld = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev,
+                                      devices=devices)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            lm = ld.load_shard("m", info, 0, n)
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_allocated(dev) - before
+            split = lm.handle
+            total = split.size_bytes
+            check(total == model.size_bytes and split.fuse_key == "",
+                  f"{path} x{n}: size {total} / fuse key")
+            check(lm.size_bytes == -(-total // n),
+                  f"{path} x{n}: share {lm.size_bytes}")
+            params = families.leaves(split.params)
+            for r in range(n):
+                expect = sum(leaf.numel() * leaf.element_size()
+                             // (n if leaf.split else 1) for leaf in params)
+                check(mesh.shard_nbytes(split.params, r) == expect,
+                      f"{path} x{n}: shard {r} holds "
+                      f"{mesh.shard_nbytes(split.params, r)} != {expect}")
+            for leaf in (p for p in params if p.split):
+                for b, want_dev in zip(leaf.blocks, devices):
+                    check(b.device == torch.device(want_dev)
+                          and b.untyped_storage().nbytes()
+                          == b.numel() * b.element_size(),
+                          f"{path} x{n}: a split block is not its own")
+            got = split.predict_bytes(x)
+            if n == 1:
+                check(got == want, f"{path} x1: not bit for bit the plain "
+                      "load")
+                err = 0.0
+            else:
+                a, b = (np.frombuffer(v, np.float32) for v in (got, want))
+                err = float(np.abs(a - b).max())
+                check(np.allclose(a, b, **SERVING_TOL),
+                      f"{path} x{n}: {err} from the plain load")
+            chunks = list(ld.export_shard_weights("m", split))
+            back = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev,
+                                        devices=devices)
+            rt = back.load_shard_from_stream("m", info, 0, n, iter(chunks))
+            check(rt.size_bytes == lm.size_bytes
+                  and [families.leaf_bytes(t) for t in
+                       families.leaves(rt.handle.params)]
+                  == [families.leaf_bytes(t) for t in params]
+                  and rt.handle.predict_bytes(x) == got,
+                  f"{path} x{n}: the stream round trip differs")
+            rec[f"shards_{n}"] = {
+                "split_leaves": sum(leaf.split for leaf in params),
+                "leaves": len(params),
+                "bytes_per_shard": [mesh.shard_nbytes(split.params, r)
+                                    for r in range(n)],
+                "reported_share": lm.size_bytes,
+                "allocated_bytes_on_card": grown,
+                "max_abs_vs_plain": err,
+                "streamed_chunks": len(chunks),
+                "predict_ms": summary(wall_ms(
+                    lambda: split.predict_bytes(x), PREDICT_CALLS)),
+            }
+        out[path] = rec
+    return out
+
+
+def mesh_costs(dev, shards: int = MESH_SHARDS, reps: int = 30) -> dict:
+    """The mesh's own host cost on ``shards`` shards of ``dev``: wall ms
+    (median of ``reps`` after a warm-up) of an empty run, of a run of
+    2·(shards−1) ppermutes of a small tensor (the ring's count), of the
+    same with one small device op after each, and of ring attention at
+    [1, 2, 128, 8]; per collective, (run − empty run) / collectives."""
+    from modelmesh_tpu_torch.parallel import mesh as mesh_mod
+    from modelmesh_tpu_torch.parallel import ring_attention as ra
+
+    n_coll = 2 * (shards - 1)
+    perm = [(i, (i + 1) % shards) for i in range(shards)]
+    small = [torch.zeros(64, device=dev) for _ in range(shards)]
+    mesh = mesh_mod.Mesh([dev] * shards, (shards,), ("x",))
+    seq = mesh_mod.Mesh([dev] * shards, (shards,), (ra.SEQ_AXIS,))
+
+    def permutes(x, op: bool):
+        for _ in range(n_coll):
+            x = mesh_mod.ppermute(x, "x", perm)
+            if op:
+                x = x + 1.0
+        return x
+
+    ring = ra.make_ring_attention(seq, 128)
+    gen = torch.Generator().manual_seed(SEED + 90)
+    qkv = [torch.randn((1, 2, 128, 8), generator=gen).to(dev)
+           for _ in range(3)]
+    cases = {
+        "empty_run": lambda: mesh.run(lambda: None),
+        "ppermutes": lambda: mesh.run(lambda x: permutes(x, False),
+                                      (small,)),
+        "ppermutes_with_op": lambda: mesh.run(lambda x: permutes(x, True),
+                                              (small,)),
+        "ring_1x2x128x8": lambda: ring(*qkv),
+    }
+    try:
+        got = {name: float(np.median(wall_ms(fn, reps)))
+               for name, fn in cases.items()}
+    finally:
+        mesh.close()
+        seq.close()
+    return {"shards": shards, "reps": reps, "collectives_per_run": n_coll,
+            "median_ms": got,
+            "ms_per_collective": {
+                name: (got[name] - got["empty_run"]) / n_coll
+                for name in ("ppermutes", "ppermutes_with_op")}}
+
+
+def phase_runtime_mesh(dev, card: str) -> dict:
+    """The model runtime across a mesh on the card (module docstring,
+    phase 12)."""
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the f32 rings would not be f32")
+    t0 = time.perf_counter()
+    card_meshes = runtime_meshes([dev] * MESH_SHARDS)
+    cpu_meshes = runtime_meshes(["cpu"] * MESH_SHARDS)
+    reset_all_launches()
+    result = {"phase": "runtime_mesh", "card": card, "shards": MESH_SHARDS}
+    seconds = {}
+    for part, run in (
+            ("ring", lambda: mesh_ring(dev, card_meshes, cpu_meshes)),
+            ("expert_parallel", lambda: mesh_ep(dev, card_meshes)),
+            ("families", lambda: mesh_families(dev, card_meshes)),
+            ("serving_mesh", lambda: mesh_serving(dev)),
+            ("mesh_costs", lambda: mesh_costs(dev))):
+        t = time.perf_counter()
+        result[part] = run()
+        seconds[part] = time.perf_counter() - t
+    result.update(kernel_launches_in_phase=all_launches(),
+                  seconds_by_part=seconds,
+                  seconds=time.perf_counter() - t0)
+    emit(result)
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -2732,6 +3227,7 @@ def main() -> int:
     threefry = phase_threefry(dev, card, cols)
     sharded = phase_sharded(dev, card, cols)
     phase_models(dev, card)
+    phase_runtime_mesh(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).

@@ -26,12 +26,26 @@ explicitly (``_mm``/``_add``). The layer norm uses the population
 variance; gelu is the tanh form (``jax.nn.gelu``'s default); the conv
 pads "SAME" at stride 2 asymmetrically, as XLA does.
 
-One device: ``sp`` and ``ep`` run the dense path, as the reference does
-when it sees one device. A transformer with ``experts=E`` takes the MoE
-FFN in each block (``parallel/moe.py``): its weights are drawn as the
-reference's, and on one device it runs the dense oracle
-``reference_moe`` with ``groups`` routing shards. Its routing couples the
-rows of a batch, so it is not ``batch_safe``.
+A transformer with ``experts=E`` takes the MoE FFN in each block
+(``parallel/moe.py``): its weights are drawn as the reference's, and it
+runs the dense oracle ``reference_moe`` with ``groups`` routing shards.
+Its routing couples the rows of a batch, so it is not ``batch_safe``.
+
+Devices: ``build_model(..., devices=[...])`` names the devices a model
+may span, the port's counterpart of the reference's ``jax.devices()``
+(default: the model's one device). Over n > 1 of them the transformer's
+``sp=1`` runs ring attention (``parallel/ring_attention.py``) when n
+divides ``seq``, and ``ep=1`` the expert-parallel FFN when n divides
+``experts`` and ``seq`` and ``groups == n``; each only on a full-length
+input, as in the reference. Otherwise they run the dense path.
+
+Weights split over a serving mesh (``parallel/mesh.py`` ``shard_params``,
+the store's ``load_sharded``) are ``ShardedLeaf`` leaves: a product with
+a column-split weight runs block by block on the blocks' devices and
+gathers the output columns in order (``_mm``); any other read of a split
+leaf gathers it for that use (``mesh.local``): in the transformer, the
+embedding table, once a call, for its row lookup and its readout. No shard thread runs, so a
+split model may also run the ring and the expert-parallel FFN.
 """
 
 from __future__ import annotations
@@ -46,7 +60,17 @@ import torch.nn.functional as F
 
 from modelmesh_tpu_torch import random as prng
 from modelmesh_tpu_torch.device import resolve_device
-from modelmesh_tpu_torch.parallel.moe import init_moe_params, reference_moe
+from modelmesh_tpu_torch.parallel.mesh import ShardedLeaf, local
+from modelmesh_tpu_torch.parallel.moe import (
+    init_moe_params,
+    make_expert_mesh,
+    make_expert_parallel_ffn,
+    reference_moe,
+)
+from modelmesh_tpu_torch.parallel.ring_attention import (
+    make_ring_attention,
+    make_seq_mesh,
+)
 
 _BF16 = torch.bfloat16
 _F32 = torch.float32
@@ -112,8 +136,8 @@ def leaf_nbytes(t: torch.Tensor) -> int:
 
 def leaf_bytes(t: torch.Tensor) -> bytes:
     """A leaf's bytes in the reference's wire layout (row-major, its own
-    dtype)."""
-    flat = t.detach().to("cpu").contiguous().reshape(-1)
+    dtype); a split leaf's whole bytes."""
+    flat = local(t, "cpu").detach().to("cpu").contiguous().reshape(-1)
     return flat.view(torch.uint8).numpy().tobytes()
 
 
@@ -225,12 +249,18 @@ def _draw(key: torch.Tensor, shape) -> torch.Tensor:
 
 # -- arithmetic with the reference's dtype promotion -------------------------
 
-def _promoted(a: torch.Tensor, b: torch.Tensor):
+def _promoted(a: torch.Tensor, b):
+    b = local(b, a.device)
     dt = torch.promote_types(a.dtype, b.dtype)
     return a.to(dt), b.to(dt)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm(a: torch.Tensor, b) -> torch.Tensor:
+    if isinstance(b, ShardedLeaf) and b.split:
+        # Column-parallel: each block's product on its device, the output
+        # columns gathered in block order.
+        return torch.cat([_mm(a.to(blk.device), blk).to(a.device)
+                          for blk in b.blocks], dim=-1)
     a, b = _promoted(a, b)
     return a @ b
 
@@ -387,13 +417,15 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return a * b
 
 
-def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
+def build_transformer(spec: ModelSpec, model_id: str,
+                      devices=None) -> ServableModel:
     """Tiny causal transformer LM: int32 token payload -> next-token logits.
 
     Learned embeddings, pre-LN blocks with causal self-attention + gelu
     MLP (or, with ``experts=E``, the MoE FFN routed in ``groups`` token
     shards), weight-tied f32 readout of the last position; f32 attention
-    softmax cast to bf16."""
+    softmax cast to bf16. ``sp=1`` / ``ep=1`` over ``devices`` (module
+    docstring)."""
     vocab = spec.params.get("vocab", 256)
     d = spec.params.get("d", 128)
     n_layers = spec.params.get("layers", 2)
@@ -407,6 +439,21 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
             f"transformer spec: groups={moe_groups} must divide "
             f"seq={seq} (MoE routing capacity is per token-shard)"
         )
+    n_dev = len(devices or ())
+    # sp=1: ring attention over the devices. The parameters are the same
+    # either way; the schedule differs, so outputs agree at bf16 level
+    # (block-wise softmax reassociation, p kept in f32), not bit for bit.
+    ring = None
+    if spec.params.get("sp", 0) and n_dev > 1 and seq % n_dev == 0:
+        ring = make_ring_attention(make_seq_mesh(devices), seq, causal=True)
+    # ep=1: the expert-parallel FFN, when the mesh's shards are the
+    # model's routing groups (the same drops as the dense oracle).
+    moe_fn = None
+    if (spec.params.get("ep", 0) and n_experts and n_dev > 1
+            and n_experts % n_dev == 0 and seq % n_dev == 0
+            and moe_groups == n_dev):
+        moe_fn = make_expert_parallel_ffn(make_expert_mesh(devices),
+                                          n_experts)
     key = prng.PRNGKey(_seed_from(spec, model_id))
 
     def dense(k, a, b):
@@ -438,7 +485,9 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
     def apply(params, tokens):
         # tokens: i32[batch, seq]
         b, t = tokens.shape
-        h = params["embed"][(tokens % vocab).long()] + params["pos"][None, :t]
+        embed = local(params["embed"], tokens.device)
+        h = (embed[(tokens % vocab).long()]
+             + local(params["pos"], tokens.device)[None, :t])
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                      device=tokens.device))
         for blk in params["blocks"]:
@@ -450,20 +499,27 @@ def build_transformer(spec: ModelSpec, model_id: str) -> ServableModel:
                 return z.reshape(b, t, n_heads, head_dim).transpose(1, 2)
 
             q, kk, v = heads(q), heads(kk), heads(v)
-            att = (q.to(_F32) @ kk.to(_F32).transpose(2, 3)) / scale
-            att = torch.where(mask[None, None], att, -1e30)
-            att = torch.softmax(att, dim=-1).to(_BF16)
-            z = _mm(att, v)
+            if ring is not None and t == seq:
+                z = ring(q, kk, v)      # [b, h, t, hd], causal, f32 softmax
+            else:
+                att = (q.to(_F32) @ kk.to(_F32).transpose(2, 3)) / scale
+                att = torch.where(mask[None, None], att, -1e30)
+                att = torch.softmax(att, dim=-1).to(_BF16)
+                z = _mm(att, v)
             z = z.transpose(1, 2).reshape(b, t, d)
             h = _add(h, _mm(z, blk["proj"]))
             x = _layer_norm(h, blk["ln2"])
             if "moe" in blk:
-                y = reference_moe(blk["moe"], x.reshape(b * t, d),
-                                  n_experts, n_dev=moe_groups)
+                moe = {k: local(w, x.device) for k, w in blk["moe"].items()}
+                flat = x.reshape(b * t, d)
+                if moe_fn is not None and t == seq:
+                    y = moe_fn(moe, flat)
+                else:
+                    y = reference_moe(moe, flat, n_experts, n_dev=moe_groups)
                 h = _add(h, y.reshape(b, t, d).to(h.dtype))
             else:
                 h = _add(h, _mm(_gelu(_mm(x, blk["up"])), blk["down"]))
-        return h[:, -1].to(_F32) @ params["embed"].T.to(_F32)
+        return h[:, -1].to(_F32) @ embed.T.to(_F32)
 
     return ServableModel(apply, params, (seq,), np.int32)
 
@@ -496,10 +552,14 @@ def fuse_key_for(spec: ModelSpec) -> str:
 
 
 def build_model(model_id: str, model_type: str, model_path: str,
-                device=None) -> ServableModel:
+                device=None, devices=None) -> ServableModel:
     """Build on the host, then move the parameters to ``device``
-    (``None``: ``cuda:0`` or raise)."""
+    (``None``: ``cuda:0`` or raise). ``devices``: the devices the model
+    may span (``None``: ``[device]``), which the transformer's ``sp`` and
+    ``ep`` run over."""
     device = resolve_device(device)
+    devices = ([device] if devices is None
+               else [torch.device(d) for d in devices])
     spec = ModelSpec.parse(model_type, model_path)
     builder = FAMILIES.get(spec.family)
     if builder is None:
@@ -507,7 +567,8 @@ def build_model(model_id: str, model_type: str, model_path: str,
             f"unknown model family {spec.family!r} "
             f"(known: {sorted(FAMILIES)})"
         )
-    model = builder(spec, model_id)
+    model = (builder(spec, model_id, devices) if builder is build_transformer
+             else builder(spec, model_id))
     model.params = map_tree(lambda t: t.to(device), model.params)
     model.family = spec.family
     model.fuse_key = fuse_key_for(spec)

@@ -9,6 +9,12 @@ process per instance behind the serving core's sidecar client
 
 Every entry point takes ``device``: ``None`` means ``cuda:0`` and raises
 without a CUDA device; ``device="cpu"`` is the caller's explicit choice.
+They also take ``devices``, the devices a model may span (``None``:
+``[device]``; ``"auto"``: every device of ``device``'s type, the
+reference's ``jax.devices()``; a list may name one device more than
+once): the transformer's ``sp=1``/``ep=1`` run over them, and
+``load_sharded`` splits weights over the serving mesh on them. The models
+on one mesh take turns on it (``Mesh.run`` serves one call at a time).
 
 Run standalone:
     python -m modelmesh_tpu_torch.models.server --port 8085 --capacity-mb 1024
@@ -38,6 +44,7 @@ from modelmesh_tpu_torch.models.families import (
     map_tree,
     unflatten,
 )
+from modelmesh_tpu_torch.parallel import mesh as mesh_mod
 from modelmesh_tpu_torch.proto import mesh_runtime_pb2 as rpb
 from modelmesh_tpu_torch.runtime import grpc_defs
 from modelmesh_tpu_torch.runtime.spi import (
@@ -64,6 +71,34 @@ def _warm(model: ServableModel) -> None:
     model.run(np.zeros((1, *model.input_shape), model.input_dtype))
 
 
+def resolve_devices(devices, device: torch.device) -> list[torch.device]:
+    """The devices a store's models may span: ``None`` -> ``[device]``;
+    ``"auto"`` -> every device of ``device``'s type (every CUDA device, or
+    the host); else the list as given."""
+    if devices is None:
+        return [device]
+    if isinstance(devices, str):
+        if devices != "auto":
+            raise ValueError(f"devices={devices!r}: a list or 'auto'")
+        return (mesh_mod.cuda_devices() if device.type == "cuda"
+                else [device])
+    return [torch.device(d) for d in devices]
+
+
+def shard_servable(model: ServableModel, mesh) -> ServableModel:
+    """A built model's parameters split over the serving mesh by
+    ``param_pspec`` (weight matrices column-split on ``mdl``, the rest
+    replicated), with the family's apply unchanged: its products run
+    column-parallel on the blocks' devices. ``fuse_key`` is cleared: a
+    split copy never stacks into a fused group (the stack would gather
+    the blocks and undo the memory split)."""
+    return ServableModel(
+        model.apply, mesh_mod.shard_params(model.params, mesh),
+        model.input_shape, model.input_dtype, family=model.family,
+        fuse_key="", batch_safe=model.batch_safe,
+    )
+
+
 class TorchModelStore:
     """Loaded-model registry shared by the gRPC and in-process fronts.
 
@@ -84,9 +119,10 @@ class TorchModelStore:
     _MAX_STACKED = 8
     _MAX_FUSED_FNS = 32
 
-    def __init__(self, capacity_bytes: int, device=None):
+    def __init__(self, capacity_bytes: int, device=None, devices=None):
         self.capacity_bytes = capacity_bytes
         self.device = device_mod.resolve_device(device)
+        self.devices = resolve_devices(devices, self.device)
         self._models: dict[str, ServableModel] = {}
         self._lock = threading.Lock()
         # Operator gate for the fused cross-model path (tests flip the
@@ -108,33 +144,36 @@ class TorchModelStore:
             if existing is not None:
                 return existing.size_bytes
         model = build_model(model_id, model_type, model_path,
-                            device=self.device)
+                            device=self.device, devices=self.devices)
         _warm(model)
         with self._lock:
             self._models[model_id] = model
         return model.size_bytes
 
     def load_sharded(self, model_id: str, model_type: str,
-                     model_path: str) -> int:
-        """The reference's ``load_sharded`` on a one-device mesh: the full
-        parameters on this store's device, restricted to
-        LAYER_STREAMABLE_FAMILIES, ``fuse_key`` cleared as the reference's
-        ``shard_servable`` clears it (a sharded copy never stacks into a
-        fused group). The column split over a mesh is not ported (ROADMAP
-        queue 1 item 4)."""
+                     model_path: str, mesh=None) -> int:
+        """Load with the weights split over the serving mesh (``mesh``;
+        ``None``: ``serving_mesh`` over this store's devices): each
+        weight matrix column-split on ``mdl``, the rest replicated
+        (``shard_servable``). Restricted to LAYER_STREAMABLE_FAMILIES,
+        whose compute is dense per-layer products, so the column split is
+        always valid. On a one-shard mesh every leaf is replicated and the
+        model computes bit for bit what ``load`` computes. Returns the
+        whole model's bytes."""
         with self._lock:
             existing = self._models.get(model_id)
             if existing is not None:
                 return existing.size_bytes
         model = build_model(model_id, model_type, model_path,
-                            device=self.device)
+                            device=self.device, devices=self.devices)
         if model.family not in LAYER_STREAMABLE_FAMILIES:
             raise ValueError(
                 f"family {model.family!r} is not sharded-executable "
                 f"(layer-streamable families only: "
                 f"{sorted(LAYER_STREAMABLE_FAMILIES)})"
             )
-        model.fuse_key = ""
+        model = shard_servable(
+            model, mesh or mesh_mod.serving_mesh(devices=self.devices))
         _warm(model)
         with self._lock:
             self._models[model_id] = model
@@ -503,10 +542,11 @@ def start_torch_runtime(
     max_workers: int = 16,
     uds_path: str = "",
     device=None,
+    devices=None,
 ) -> tuple[grpc.Server, int, TorchRuntimeServicer]:
     """Start the runtime's gRPC server; returns (server, bound port,
     servicer). The caller stops the server."""
-    store = TorchModelStore(capacity_bytes, device)
+    store = TorchModelStore(capacity_bytes, device, devices)
     servicer = TorchRuntimeServicer(store)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),
@@ -541,8 +581,8 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
     instance — no sidecar hop; the runtime handle is the ServableModel."""
 
     def __init__(self, capacity_bytes: int = 256 << 20,
-                 load_concurrency: int = 4, device=None):
-        self.store = TorchModelStore(capacity_bytes, device)
+                 load_concurrency: int = 4, device=None, devices=None):
+        self.store = TorchModelStore(capacity_bytes, device, devices)
         self._load_concurrency = load_concurrency
 
     def startup(self) -> LocalInstanceParams:
@@ -657,7 +697,7 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
     def _skeleton(self, model_id: str, info: ModelInfo) -> ServableModel:
         try:
             return build_model(model_id, info.model_type, info.model_path,
-                               device="cpu")
+                               device="cpu", devices=self.store.devices)
         except (ValueError, NotImplementedError) as e:
             raise ModelLoadException(str(e)) from e
 
@@ -707,12 +747,15 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
 
     # -- sharded execution (placement groups) ------------------------------
     #
-    # The reference places the full parameters sharded across its local
-    # serving mesh and reports the shard's SHARE of the bytes
-    # (total/shard_count) as resident. This runtime has one device: the
-    # full parameters stay on it (the reference's one-device mesh), with
-    # the same share accounting and the same leaf-range streams. The column
-    # split over several devices is ROADMAP queue 1 item 4.
+    # As the reference: a "shard" here is device-level. The whole
+    # parameter set lands split across the store's serving mesh
+    # (``load_sharded``), and the loader reports the shard's SHARE of the
+    # bytes (ceil(total/shard_count)) as resident, which is what each
+    # member of a multi-host group holds. Fleet-level slicing is what the
+    # transfer path moves: a shard handle's export yields only the
+    # shard's leaf range (each leaf's whole bytes), and
+    # ``load_shard_from_stream`` grafts those leaves onto the
+    # deterministic skeleton, which supplies the rest.
 
     @property
     def supports_sharded_execution(self) -> bool:
@@ -766,11 +809,11 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
                 f"{sorted(want)}"
             )
         params = self._graft(model_id, skeleton, by_layer, "leaf")
-        model = ServableModel(
+        model = shard_servable(ServableModel(
             skeleton.apply, params, skeleton.input_shape,
-            skeleton.input_dtype, family=skeleton.family, fuse_key="",
+            skeleton.input_dtype, family=skeleton.family,
             batch_safe=skeleton.batch_safe,
-        )
+        ), mesh_mod.serving_mesh(devices=self.store.devices))
         model.shard_index = shard_index
         model.shard_count = shard_count
         _warm(model)
@@ -790,16 +833,17 @@ def main() -> None:
     parser.add_argument(
         "--device", default=None,
         help="torch device to serve from (default cuda:0; 'cpu' runs the "
-             "models on the host)",
+             "models on the host); models span every device of its type",
     )
     args = parser.parse_args()
     logging.basicConfig(level=logging.INFO)
     server, port, servicer = start_torch_runtime(
         args.port, args.capacity_mb << 20, uds_path=args.uds,
-        device=args.device,
+        device=args.device, devices="auto",
     )
-    log.info("torch model runtime on %s (device %s)", args.uds or f":{port}",
-             servicer.store.device)
+    log.info("torch model runtime on %s (device %s, spanning %s)",
+             args.uds or f":{port}", servicer.store.device,
+             [str(d) for d in servicer.store.devices])
     server.wait_for_termination()
 
 

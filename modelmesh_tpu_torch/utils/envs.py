@@ -85,6 +85,12 @@ REGISTRY: dict[str, EnvVar] = {
         EnvVar("MM_TRANSFER_CHUNK_BYTES", "int", str(1 << 20),
                "weight-transfer chunk granularity (bytes per chunk), read "
                "by the exporting loader's serializer", _SERVER),
+        EnvVar("MM_SHARDED_MESH_DEVICES", "int", "0",
+               "serving-mesh width for sharded execution "
+               "(parallel/mesh.py serving_mesh): weight matrices are "
+               "column-split across the first this many of the store's "
+               "devices; 0 (default) = every one of them",
+               "parallel/mesh.py"),
         EnvVar("MM_MAX_MSG_BYTES", "int", str(16 << 20),
                "gRPC message cap on every server/channel",
                "utils/grpcopts.py"),

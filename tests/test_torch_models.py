@@ -11,6 +11,12 @@ against the JAX package's, on the CPU.
 - Spec parsing, ``fuse_key_for``, ``predict_size_estimate``, the
   ``example`` alias, ``sp``/``ep`` on one device, the MoE spec check
   (the MoE transformer itself: ``tests/test_torch_moe.py``).
+- ``sp=1`` and ``ep=1`` over 8 "cpu" shards (ring attention, the
+  expert-parallel FFN): against the reference's ``build_model`` on its 8
+  virtual devices (which runs its ring and its expert-parallel FFN) at
+  ``FORWARD_TOL``, with the collective counts that prove the mesh ran;
+  against the port's own dense run at the reference's 0.08; a shorter
+  input takes the dense path bit for bit.
 """
 
 import jax
@@ -24,6 +30,7 @@ from modelmesh_tpu.models.server import (
     predict_size_estimate as jax_size_estimate,
 )
 from modelmesh_tpu_torch.models import families as tf
+from modelmesh_tpu_torch.parallel import mesh as mesh_mod
 from modelmesh_tpu_torch.models.server import predict_size_estimate
 
 SPECS = {
@@ -268,3 +275,89 @@ def test_tree_helpers_round_trip():
     assert [t.shape[0] for t in tf.leaves(back)] == [4, 2, 3, 1]
     with pytest.raises(ValueError):
         tf.unflatten(tree, flat + [torch.ones(1)])
+
+
+CPUS = ["cpu"] * 8
+# tests/test_models.py's specs, model ids and token seeds.
+SPMD = {
+    "sp": ("lc-model", "transformer://d=64,heads=4,seq=128,layers=2,sp=1", 0),
+    "ep": ("moe-model", "transformer://d=64,heads=4,seq=64,layers=2,"
+           "experts=16,groups=8,ep=1", 7),
+}
+
+
+def _spmd_counts():
+    return {
+        axis: dict(mesh_mod.axis_mesh(axis, CPUS).collectives)
+        for axis in ("seq", "exp")
+    }
+
+
+def _clear_spmd_counts():
+    for axis in ("seq", "exp"):
+        mesh_mod.axis_mesh(axis, CPUS).collectives.clear()
+
+
+@pytest.mark.parametrize("kind", sorted(SPMD))
+def test_sp_and_ep_on_eight_shards_match_the_reference(kind):
+    mid, path, seed = SPMD[kind]
+    assert len(jax.devices()) == 8
+    jm = jf.build_model(mid, "transformer", path)
+    tm = tf.build_model(mid, "transformer", path, device="cpu",
+                        devices=CPUS)
+    tm.params = tf.params_from_leaves(
+        tm.params, [np.asarray(leaf) for leaf in jax.tree.leaves(jm.params)],
+        device="cpu")
+    seq = tm.input_shape[0]
+    tokens = np.random.default_rng(seed).integers(0, 255, (2, seq)).astype(
+        np.int32)
+    ref = np.asarray(jm.apply(jm.params, jnp.asarray(tokens)), np.float32)
+    _clear_spmd_counts()
+    got = tm.run(tokens)
+    layers = len(tm.params["blocks"])
+    want_counts = ({"seq": {"ppermute": 2 * 7 * layers}, "exp": {}}
+                   if kind == "sp"
+                   else {"seq": {}, "exp": {"all_to_all": 2 * layers}})
+    assert _spmd_counts() == want_counts
+    rtol, atol_frac = FORWARD_TOL["transformer"]
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=atol_frac * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("kind", sorted(SPMD))
+def test_sp_and_ep_on_eight_shards_match_the_dense_run(kind):
+    """The schedule changes, not the function: the same weights give the
+    dense run's logits at the reference's 0.08; the output moves with the
+    input; a shorter input runs the dense path, bit for bit."""
+    mid, path, seed = SPMD[kind]
+    dense = tf.build_model(mid, "transformer",
+                           path.replace(f",{kind}=1", ""), device="cpu")
+    spmd = tf.build_model(mid, "transformer", path, device="cpu",
+                          devices=CPUS)
+    seq = spmd.input_shape[0]
+    tokens = np.random.default_rng(seed).integers(0, 255, (2, seq)).astype(
+        np.int32)
+    a, b = dense.run(tokens), spmd.run(tokens)
+    np.testing.assert_allclose(a, b, atol=0.08, rtol=0.08)
+    tokens2 = tokens.copy()
+    tokens2[:, -1] ^= 1
+    assert np.abs(spmd.run(tokens2) - b).max() > 1e-3
+    short = torch.from_numpy(tokens[:, : seq // 2].copy())
+    _clear_spmd_counts()
+    with torch.inference_mode():
+        np.testing.assert_array_equal(
+            spmd.apply(spmd.params, short).numpy(),
+            dense.apply(dense.params, short).numpy())
+    assert _spmd_counts() == {"seq": {}, "exp": {}}
+
+
+def test_sp_and_ep_need_a_dividing_device_count():
+    """Over 3 devices neither divides: the dense path, bit for bit."""
+    for kind in sorted(SPMD):
+        mid, path, seed = SPMD[kind]
+        dense = tf.build_model(mid, "transformer", path, device="cpu")
+        three = tf.build_model(mid, "transformer", path, device="cpu",
+                               devices=["cpu"] * 3)
+        x = np.random.default_rng(seed).integers(
+            0, 255, (1, dense.input_shape[0])).astype(np.int32)
+        np.testing.assert_array_equal(three.run(x), dense.run(x))
