@@ -212,6 +212,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              run, 14 ppermutes, the same with one device op each, a small
              ring (mesh_costs).
 
+13. plan_loop — the registry and the leader/follower plan loop at the
+             main fleet (100,000 models x 1,000 instances, the main
+             phase's records and seed): the models written as port
+             records through a BucketedKVTable under mm/registry, the
+             instances through a KVTable under mm/instances, all into one
+             port InMemoryKV; three pods, each a TorchPlacementStrategy on
+             the card with its default (greedy) fallback, a SessionNode
+             for its own instance record (2 s TTL), a LeaderElection, a
+             PlanFollower and a TableView of the instances. Five ticks of
+             the reaper's plan step (serving/tasks.py reaper_plan_step) on
+             the elected leader, and one more under torch.profiler (the
+             device's idle share of a tick): per tick the registry scan,
+             the views, the refresh and its solve_ms, the publish and the
+             plan's bytes, each pod's adoption from the put's return,
+             host syncs and launches per kernel (counters zeroed just
+             before the step). Gates: every tick's generation one more
+             than the KV held; every pod's adopted plan to_bytes() equal
+             to the published bytes; the leader's plan byte for byte
+             dispatch_solve -> finalize_plan on the snapshot its refresh
+             built, with its refresh's seed and carry, and that snapshot
+             the scanned records' in every column not read against the
+             clock (rates of models without rpm, LRU ages). A
+             follower's load decisions on 1,000 models: the plan's answer
+             wherever the plan has a usable target, else greedy's (share
+             and µs of each). A shadow pod,
+             ShadowStrategy(GreedyStrategy(), TorchPlacementStrategy()),
+             scores the same decisions (agreement). One tick under
+             MM_MAX_PLAN_BYTES at a quarter of the plan's bytes: every pod
+             holds exactly the kept models, a cut model is answered by
+             greedy. The leader leaves (election and session closed): a
+             follower leads within the TTL, and its tick publishes the
+             next plan (its generation is the new leader's own refresh
+             count, as in the reference). One tick of a 10,000 x 100 fleet
+             on the dense tier (lse_sinkhorn_step launched). Under 90 s.
+
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
@@ -237,7 +272,6 @@ from modelmesh_tpu_torch.ops import (
     _build, auction, cuda_lse, cuda_sparse, sparse,
 )
 from modelmesh_tpu_torch.ops.auction import K_CAND, MAX_COPIES
-from modelmesh_tpu_torch.placement.strategy import PlacementStrategy
 from modelmesh_tpu_torch.placement.synthetic import synthetic_records
 from modelmesh_tpu_torch.placement.torch_engine import (
     TorchPlacementStrategy,
@@ -1406,17 +1440,6 @@ def phase_dense_main(dev, cols) -> dict:
     return result
 
 
-class NoDecisions(PlacementStrategy):
-    """The fallback a ``TorchPlacementStrategy`` requires. The smoke run
-    refreshes plans and makes no placement decision, so it answers none."""
-
-    def choose_load_target(self, req, view):
-        return None
-
-    def choose_serve_target(self, model, view, exclude):
-        return None
-
-
 def steady_solve_config():
     """bench.py's _steady_solve_config: the steady gates
     (sinkhorn_tol 0.02, auction_stall_tol 1e-3) unless the operator pinned
@@ -1430,8 +1453,9 @@ def steady_solve_config():
 
 
 def new_strategy(dev, frac: float) -> TorchPlacementStrategy:
-    strat = TorchPlacementStrategy(fallback=NoDecisions(),
-                                   solve_config=steady_solve_config(),
+    # The default fallback: the port's GreedyStrategy (refresh never asks
+    # it, so the phases' counts and placements are as they were).
+    strat = TorchPlacementStrategy(solve_config=steady_solve_config(),
                                    device=dev)
     strat.incr_max_dirty_frac = frac
     return strat
@@ -3180,6 +3204,433 @@ def phase_runtime_mesh(dev, card: str) -> dict:
     return result
 
 
+PLAN_PREFIX = "mm"
+PLAN_PODS = 3
+PLAN_TICKS = 5
+PLAN_DECISIONS = 1000
+PLAN_TTL_S = 2.0              # the pods' session and election TTL
+PLAN_DENSE_FLEET = (10_000, 100)
+PLAN_BUDGET_S = 90.0
+PLAN_WAIT_S = 30.0            # bound of every wait on a watch thread
+
+
+def cluster_ops():
+    """The cluster layer's modules, imported where the phase needs them
+    (tools/sparse_kernel_times.py imports this module against trees from
+    before them)."""
+    import types
+
+    from modelmesh_tpu_torch.kv.memory import InMemoryKV
+    from modelmesh_tpu_torch.kv.session import LeaderElection, SessionNode
+    from modelmesh_tpu_torch.kv.table import (
+        BucketedKVTable, KVTable, TableView,
+    )
+    from modelmesh_tpu_torch.placement import plan_sync
+    from modelmesh_tpu_torch.placement.greedy import GreedyStrategy
+    from modelmesh_tpu_torch.placement.shadow import ShadowStrategy
+    from modelmesh_tpu_torch.placement.strategy import (
+        LOAD_HERE, ClusterView, PlacementRequest,
+    )
+    from modelmesh_tpu_torch.placement.torch_engine import GlobalPlan
+    from modelmesh_tpu_torch.records import InstanceRecord, ModelRecord
+    from modelmesh_tpu_torch.serving.tasks import reaper_plan_step
+
+    return types.SimpleNamespace(**locals())
+
+
+def wait_until(pred, what: str, timeout: float = PLAN_WAIT_S) -> None:
+    """Poll ``pred`` until true; fails the phase past ``timeout``."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"chip_smoke: plan_loop: {what} not within "
+                               f"{timeout} s")
+        time.sleep(0.0002)
+
+
+class Pod:
+    """One serving instance's share of the cluster layer, wired as the
+    reference's ModelMeshInstance wires it: an ephemeral session for its
+    instance record, a leader-election candidacy, a plan follower feeding
+    its strategy, and a watch-fed view of the instances."""
+
+    def __init__(self, ops, kv, iid: str, rec, strategy):
+        self.iid = iid
+        self.strategy = strategy
+        self.view = ops.TableView(ops.KVTable(
+            kv, f"{PLAN_PREFIX}/instances", ops.InstanceRecord))
+        self.session = ops.SessionNode(
+            kv, f"{PLAN_PREFIX}/instances/{iid}", rec.to_bytes(),
+            ttl_s=PLAN_TTL_S)
+        self.session.start()
+        self.election = ops.LeaderElection(
+            kv, f"{PLAN_PREFIX}/leader", iid, lambda is_leader: None,
+            ttl_s=PLAN_TTL_S)
+        self.election.start()
+        self.follower = ops.plan_sync.PlanFollower(kv, PLAN_PREFIX, strategy)
+        # The strategy that holds the adopted plan (a shadow pod's solver).
+        self.holder = getattr(strategy, "shadow", strategy)
+
+    def leave(self) -> None:
+        """The pod goes away: its candidacy and its session end."""
+        self.election.close()
+        self.session.close()
+
+    def close(self) -> None:
+        self.follower.close()
+        self.view.close()
+        self.leave()
+
+
+class PlanCluster:
+    """A port InMemoryKV holding a fleet's registry (models through a
+    BucketedKVTable, instances through a KVTable) and ``pods`` pods, the
+    first ``pods`` instances. Close it in a finally."""
+
+    def __init__(self, ops, fleet, dev, pods: int):
+        t0 = time.perf_counter()
+        models, instances, self.rpm, _ = fleet
+        self.ops = ops
+        self.kv = ops.InMemoryKV()
+        self.pods = []
+        try:
+            self.registry = ops.BucketedKVTable(
+                self.kv, f"{PLAN_PREFIX}/registry", ops.ModelRecord)
+            for mid, mr in models:
+                self.registry.put(mid, mr)
+            table = ops.KVTable(self.kv, f"{PLAN_PREFIX}/instances",
+                                ops.InstanceRecord)
+            for iid, rec in instances[pods:]:
+                table.put(iid, rec)
+            for iid, rec in instances[:pods]:
+                self.pods.append(Pod(
+                    ops, self.kv, iid, rec,
+                    TorchPlacementStrategy(device=dev)))
+            for pod in self.pods:
+                wait_until(lambda p=pod: len(p.view) == len(instances),
+                           f"{pod.iid}'s view of {len(instances)} instances")
+        except BaseException:
+            self.close()
+            raise
+        # The last tick's plan (before any truncation) and the records its
+        # step scanned.
+        self.last_plan, self.last_records = None, None
+        self.setup_s = time.perf_counter() - t0
+
+    def leader(self):
+        leaders = [p for p in self.pods if p.election.is_leader]
+        check(len(leaders) == 1, f"plan_loop: {len(leaders)} leaders")
+        return leaders[0]
+
+    def published(self):
+        return self.kv.get(self.ops.plan_sync.plan_key(PLAN_PREFIX))
+
+    def close(self) -> None:
+        for pod in self.pods:
+            pod.close()
+        self.kv.close()
+
+
+def plan_tick(dev, cluster, *, new_leader: bool = False,
+              profile: bool = False) -> dict:
+    """One reaper plan step on the elected leader, then its gates: the
+    step published (generation one more than the KV held, or a new
+    leader's first), every pod adopted the published bytes, and the
+    leader's placements are those of dispatch_solve -> finalize_plan on
+    the snapshot its refresh built, with the seed and carry it took."""
+    ops = cluster.ops
+    leader = cluster.leader()
+    strat = leader.strategy
+    before = cluster.published()
+    gen_before = (ops.GlobalPlan.from_bytes(before.value).generation
+                  if before is not None else 0)
+    rev_before = before.mod_rev if before is not None else 0
+    # A full refresh rotates the seed and carries g, not the prices.
+    seed, warm_g = strat._seed + 1, strat._warm_g
+    refreshes_before = strat._generation
+    torch.cuda.synchronize(dev)
+    reset_all_launches()
+    syncs0 = device_mod.host_syncs
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        prof = profiler(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+    t = time.perf_counter()
+    step = ops.reaper_plan_step(cluster.kv, PLAN_PREFIX, strat,
+                                cluster.registry, leader.view, cluster.rpm)
+    t_put = time.perf_counter()
+    step_ms = (t_put - t) * 1e3
+    check(step.plan is not None, f"plan_loop: the step failed: {step.error!r}")
+    # Each pod's adoption, from the put's return to its strategy holding
+    # the decoded plan; every follower adopts on the store's one dispatch
+    # thread, in turn.
+    adopt_ms = {}
+    pending = list(cluster.pods)
+
+    def all_adopted():
+        now = time.perf_counter()
+        for pod in list(pending):
+            plan = pod.holder.plan
+            if (plan is not None and plan is not step.plan
+                    and plan.generation == step.plan.generation):
+                adopt_ms[pod.iid] = (now - t_put) * 1e3
+                pending.remove(pod)
+        return not pending
+
+    wait_until(all_adopted, "every pod adopting the plan")
+    launches, syncs = all_launches(), device_mod.host_syncs - syncs0
+    result = {}
+    if prof is not None:
+        torch.cuda.synchronize(dev)
+        prof.__exit__(None, None, None)
+        by_name = device_ms_by_kernel(prof)
+        busy = sum(ms for ms, _ in by_name.values())
+        result["profiled"] = {"step_ms": step_ms, "device_busy_ms": busy,
+                              "device_idle_share": 1.0 - busy / step_ms}
+    kv = cluster.published()
+    plan = step.plan
+    cluster.last_plan, cluster.last_records = plan, step.records
+    check(kv is not None and kv.mod_rev > rev_before,
+          "plan_loop: the tick published nothing")
+    # The generation is the leader strategy's refresh count: one more
+    # than the KV held, or, for a new leader, its own first.
+    want_gen = refreshes_before + 1 if new_leader else gen_before + 1
+    check(plan.generation == want_gen,
+          f"plan_loop: published generation {plan.generation}, the KV held "
+          f"{gen_before}, the leader had refreshed {refreshes_before} times")
+    check(ops.GlobalPlan.from_bytes(kv.value).generation == plan.generation,
+          "plan_loop: the KV holds another generation than the step's")
+    check(step.nbytes == len(kv.value), "plan_loop: published size")
+    for pod in cluster.pods:
+        check(pod.holder.plan.to_bytes() == kv.value,
+              f"plan_loop: {pod.iid} adopted other bytes than published")
+    for name in ("select_candidates", "masked_sinkhorn_step",
+                 "masked_row_matvec", "implied_load"):
+        if plan.stats["solver_path"] == "sparse":
+            check(launches[name] > 0, f"plan_loop: {name} never launched")
+    # The snapshot the leader solved is the one of the records it
+    # scanned: every column but the two read against the clock at
+    # snapshot time (rates of models without rpm, instances' LRU ages).
+    cols = strat._snap_cache.cols
+    fresh = snapshot_columns(step.records, step.views, cluster.rpm,
+                             constraints=strat.constraints)
+    for name in cols._fields:
+        if name in ("rates", "lru_age"):
+            continue
+        a, b = getattr(cols, name), getattr(fresh, name)
+        check(a == b if isinstance(a, list) else np.array_equal(a, b),
+              f"plan_loop: the leader's snapshot column {name} is not the "
+              "scanned records'")
+    # The leader's placements are the direct solve's on that snapshot and
+    # seed, byte for byte.
+    direct = finalize_plan(dispatch_solve(
+        cols, seed=seed, warm_g=warm_g, warm_price=None,
+        config=strat.solve_config, device=dev))
+    direct.solved_at_ms, direct.solve_ms = plan.solved_at_ms, plan.solve_ms
+    direct.generation = plan.generation
+    check(direct.to_bytes() == plan.to_bytes(),
+          "plan_loop: the leader's placements differ from dispatch_solve "
+          "-> finalize_plan on the same snapshot and seed")
+    result.update({
+        "leader": leader.iid, "generation": plan.generation,
+        "mod_rev": kv.mod_rev, "models": len(step.records),
+        "instances": len(step.views), "plan_models": plan.num_models(),
+        "published_models": ops.GlobalPlan.from_bytes(kv.value).num_models(),
+        "views_ms": step.views_ms, "scan_ms": step.scan_ms,
+        "refresh_ms": step.refresh_ms, "solve_ms": plan.solve_ms,
+        "snapshot_ms": plan.stats.get("snapshot_ms"),
+        "extract_ms": plan.stats.get("extract_ms"),
+        "publish_ms": step.publish_ms, "step_ms": step_ms,
+        "plan_bytes": step.nbytes, "adopt_ms": adopt_ms,
+        "host_syncs": syncs, "solver_path": plan.stats["solver_path"],
+        "launches": {k: v for k, v in launches.items() if v},
+    })
+    return result
+
+
+def follower_decisions(ops, pod, records, n: int) -> dict:
+    """``n`` load decisions on a follower over models sampled evenly from
+    the registry: wherever the plan has a usable target the answer is the
+    plan's, else greedy's. The share and the µs per decision of each."""
+    view = ops.ClusterView(pod.view.items())
+    live = {iid for iid, _ in view.placeable()}
+    plan = pod.holder.plan
+    greedy = ops.GreedyStrategy()
+    us = {"plan": [], "greedy": []}
+    for mid, mr in records[:: max(1, len(records) // n)][:n]:
+        req = ops.PlacementRequest(
+            model_id=mid, model=mr, required_units=max(mr.size_units, 1),
+            requesting_instance=pod.iid)
+        t = time.perf_counter()
+        got = pod.strategy.choose_load_target(req, view)
+        took = (time.perf_counter() - t) * 1e6
+        want = next((iid for iid in plan.lookup(mid) or ()
+                     if iid in live and iid not in mr.instance_ids), None)
+        if want is not None:
+            want = ops.LOAD_HERE if want == pod.iid else want
+            check(got == want, f"plan_loop: {mid} answered {got}, the "
+                  f"plan says {want}")
+            us["plan"].append(took)
+        else:
+            check(got == greedy.choose_load_target(req, view),
+                  f"plan_loop: {mid} answered {got}, not greedy's")
+            us["greedy"].append(took)
+    total = sum(len(v) for v in us.values())
+    return {
+        "decisions": total,
+        "share_plan": len(us["plan"]) / total,
+        "share_greedy": len(us["greedy"]) / total,
+        "us_per_decision": {k: float(np.median(v)) if v else None
+                            for k, v in us.items()},
+    }
+
+
+def shadow_agreement(ops, cluster, dev, records, n: int) -> dict:
+    """A pod running ShadowStrategy(GreedyStrategy(),
+    TorchPlacementStrategy()), which operators run before they promote:
+    its follower feeds the current plan to the shadow, and it scores the
+    same ``n`` load decisions."""
+    iid, rec = next((i, r) for i, r in cluster.pods[0].view.items()
+                    if i not in {p.iid for p in cluster.pods})
+    strat = ops.ShadowStrategy(ops.GreedyStrategy(),
+                               TorchPlacementStrategy(device=dev))
+    pod = Pod(ops, cluster.kv, iid, rec, strat)
+    cluster.pods.append(pod)
+    wait_until(lambda: pod.holder.plan is not None,
+               "the shadow pod adopting the plan")
+    view = ops.ClusterView(pod.view.items())
+    for mid, mr in records[:: max(1, len(records) // n)][:n]:
+        strat.choose_load_target(ops.PlacementRequest(
+            model_id=mid, model=mr, required_units=max(mr.size_units, 1),
+            requesting_instance=iid), view)
+    stats = strat.shadow_stats()
+    counts = stats["counts"]
+    check(counts.get("load_shadow_error", 0) == 0,
+          f"plan_loop: shadow errors {counts}")
+    return {"pod": iid, "counts": counts,
+            "load_agreement": stats.get("load_agreement")}
+
+
+def plan_truncation(dev, cluster, full_bytes: int) -> dict:
+    """One tick under MM_MAX_PLAN_BYTES at a quarter of the plan's bytes:
+    the pods hold exactly the kept models, and a cut (cold) model is
+    answered by greedy."""
+    ops = cluster.ops
+    with env_pin("MM_MAX_PLAN_BYTES", str(full_bytes // 4)):
+        tick = plan_tick(dev, cluster)
+    kept = tick["published_models"]
+    check(kept < tick["plan_models"] and tick["plan_bytes"] <= full_bytes // 4,
+          f"plan_loop: no truncation ({kept} of {tick['plan_models']})")
+    for pod in cluster.pods:
+        check(pod.holder.plan.num_models() == kept,
+              f"plan_loop: {pod.iid} holds {pod.holder.plan.num_models()}"
+              f" models, {kept} published")
+    pod = next(p for p in cluster.pods if not p.election.is_leader)
+    records = dict(cluster.last_records)
+    # The solve emits models hottest first: its last one is cut.
+    cold = cluster.last_plan._columnar[0][-1]
+    check(pod.holder.plan.lookup(cold) is None,
+          f"plan_loop: cut model {cold} still in the follower's plan")
+    mr = records[cold]
+    req = ops.PlacementRequest(model_id=cold, model=mr,
+                               required_units=max(mr.size_units, 1),
+                               requesting_instance=pod.iid)
+    view = ops.ClusterView(pod.view.items())
+    got = pod.strategy.choose_load_target(req, view)
+    check(got == ops.GreedyStrategy().choose_load_target(req, view),
+          f"plan_loop: cut model {cold} answered {got}, not greedy's")
+    return dict(tick, budget_bytes=full_bytes // 4, kept_models=kept,
+                cold_model=cold, cold_answer=got)
+
+
+def plan_handover(dev, cluster) -> dict:
+    """The leader leaves (its election and session closed): a follower
+    becomes leader within the session TTL, and its next tick publishes
+    the next plan (a later KV revision; the generation is the new
+    leader's own refresh count, as in the reference)."""
+    old = cluster.leader()
+    t = time.perf_counter()
+    old.leave()
+    wait_until(lambda: any(p.election.is_leader for p in cluster.pods
+                           if p is not old), "a new leader", PLAN_TTL_S)
+    handover_ms = (time.perf_counter() - t) * 1e3
+    new = cluster.leader()
+    wait_until(lambda: old.iid not in new.view,
+               f"{old.iid}'s instance record leaving the view")
+    rev = cluster.published().mod_rev
+    tick = plan_tick(dev, cluster, new_leader=True)
+    check(tick["mod_rev"] > rev and tick["leader"] == new.iid,
+          "plan_loop: the new leader's tick did not publish")
+    return dict(tick, old_leader=old.iid, handover_ms=handover_ms,
+                previous_mod_rev=rev)
+
+
+def phase_plan_loop(dev, card: str) -> dict:
+    """The registry and the leader/follower plan loop (module docstring,
+    phase 13)."""
+    ops = cluster_ops()
+    t0 = time.perf_counter()
+    result = {"phase": "plan_loop", "card": card, "models": MAIN_FLEET[0],
+              "instances": MAIN_FLEET[1], "padded": list(TIER),
+              "pods": PLAN_PODS}
+    total = {}
+    cluster = PlanCluster(ops, steady_records(*MAIN_FLEET), dev, PLAN_PODS)
+    try:
+        result["setup_s"] = cluster.setup_s
+        emit({"phase": "plan_loop_setup", "setup_s": cluster.setup_s})
+        ticks = []
+        for k in range(PLAN_TICKS):
+            ticks.append(plan_tick(dev, cluster))
+            emit(dict(phase="plan_loop_tick", tick=k, **ticks[-1]))
+            add_launches(total, ticks[-1]["launches"])
+            check(ticks[-1]["solver_path"] == "sparse",
+                  f"plan_loop: a tick took {ticks[-1]['solver_path']}")
+        result["ticks"] = ticks
+        result["profiled_tick"] = plan_tick(dev, cluster, profile=True)
+        add_launches(total, result["profiled_tick"]["launches"])
+        follower = next(p for p in cluster.pods
+                        if not p.election.is_leader)
+        records = cluster.last_records
+        result["decisions"] = follower_decisions(
+            ops, follower, records, PLAN_DECISIONS)
+        result["shadow"] = shadow_agreement(ops, cluster, dev, records,
+                                            PLAN_DECISIONS)
+        result["truncation"] = plan_truncation(
+            dev, cluster, ticks[-1]["plan_bytes"])
+        add_launches(total, result["truncation"]["launches"])
+        result["handover"] = plan_handover(dev, cluster)
+        add_launches(total, result["handover"]["launches"])
+    finally:
+        cluster.close()
+    dense = PlanCluster(ops, steady_records(*PLAN_DENSE_FLEET), dev, 1)
+    try:
+        tick = plan_tick(dev, dense)
+        check(tick["solver_path"] == "dense"
+              and tick["launches"].get("lse_sinkhorn_step", 0) > 0,
+              f"plan_loop: the {PLAN_DENSE_FLEET} tick took "
+              f"{tick['solver_path']} with launches {tick['launches']}")
+        add_launches(total, tick["launches"])
+        result["dense_tick"] = dict(tick, setup_s=dense.setup_s,
+                                    fleet=list(PLAN_DENSE_FLEET))
+    finally:
+        dense.close()
+    for key in ("scan_ms", "views_ms", "refresh_ms", "solve_ms",
+                "publish_ms", "step_ms", "plan_bytes", "host_syncs"):
+        result[key] = summary([t[key] for t in ticks])
+    result["adopt_ms"] = summary([ms for t in ticks
+                                  for ms in t["adopt_ms"].values()])
+    result.update(launches_in_run=total,
+                  seconds=time.perf_counter() - t0)
+    check(result["seconds"] < PLAN_BUDGET_S,
+          f"plan_loop took {result['seconds']:.1f} s, over "
+          f"{PLAN_BUDGET_S} s")
+    emit(result)
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -3228,6 +3679,7 @@ def main() -> int:
     sharded = phase_sharded(dev, card, cols)
     phase_models(dev, card)
     phase_runtime_mesh(dev, card)
+    plan_loop = phase_plan_loop(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -3279,6 +3731,8 @@ def main() -> int:
         entry["pipelined_launches"] = pipelined["launches_in_run"].get(
             entry["name"], 0)
         entry["sharded_launches"] = sharded["launches_in_run"].get(
+            entry["name"], 0)
+        entry["plan_loop_launches"] = plan_loop["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

@@ -56,6 +56,7 @@ from modelmesh_tpu_torch.ops.solve import (
 from modelmesh_tpu_torch.ops.sparse import resolve_sparse_impl
 from modelmesh_tpu_torch.parallel import mesh as mesh_mod
 from modelmesh_tpu_torch.parallel.sharded_solver import make_sharded_solver
+from modelmesh_tpu_torch.placement.greedy import GreedyStrategy
 from modelmesh_tpu_torch.placement.strategy import (
     LOAD_HERE,
     ClusterView,
@@ -1145,9 +1146,10 @@ class TorchPlacementStrategy(PlacementStrategy):
 
     ``refresh(models, instances, rpm_fn, incremental=...)`` solves a plan
     (the leader calls it periodically and publishes the result); decisions
-    read the latest plan without a lock and fall back to ``fallback`` on
-    any miss (model not in the plan, planned instances all excluded, plan
-    older than ``plan_ttl_ms``). An incremental refresh patches the cached
+    read the latest plan without a lock and fall back to ``fallback``
+    (the port's ``GreedyStrategy`` unless one is handed in, as in the
+    reference) on any miss (model not in the plan, planned instances all
+    excluded, plan older than ``plan_ttl_ms``). An incremental refresh patches the cached
     snapshot for the records marked dirty (``mark_dirty``) and, for small
     model-only churn under a matching noise epoch, re-solves only the
     dirty rows against the last full solve's frozen column state
@@ -1163,9 +1165,6 @@ class TorchPlacementStrategy(PlacementStrategy):
       the reference; "auto" takes the largest power-of-two set of CUDA
       devices, and None when that is one device (or none).
     - The locks are plain ``threading.Lock``s.
-    - ``fallback`` is required: the reference's default greedy strategy
-      lives in the serving layer, which the port does not import, so
-      whoever wires the port into serving hands one in.
     """
 
     def __init__(
@@ -1178,12 +1177,6 @@ class TorchPlacementStrategy(PlacementStrategy):
         *,
         device=None,
     ):
-        if fallback is None:
-            raise TypeError(
-                "TorchPlacementStrategy needs a fallback strategy: the "
-                "reference's default (the greedy strategy) belongs to the "
-                "serving layer, which the port does not import"
-            )
         if mesh == "auto":
             mesh = auto_mesh()
         if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
@@ -1193,7 +1186,7 @@ class TorchPlacementStrategy(PlacementStrategy):
             )
         self.mesh = mesh
         self.plan_ttl_ms = plan_ttl_ms
-        self.fallback = fallback
+        self.fallback = fallback or GreedyStrategy()
         # Type constraints (duck-typed is_candidate/is_preferred) the
         # solves honor.
         self.constraints = constraints

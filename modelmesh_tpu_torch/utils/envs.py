@@ -1,7 +1,9 @@
 """Registry of the environment knobs the port reads.
 
 The port's own copy of the reference registry's accessors, holding only
-the knobs the port reads: the placement solve's and the model runtime's. ``get`` raises ``KeyError``
+the knobs the port reads: the placement solve's, the model runtime's and
+the cluster layer's (the KV tables, plan distribution, greedy fallback,
+route cache and the lock/race/clock debug aids). ``get`` raises ``KeyError``
 for an unregistered name, so a typo'd knob fails at the call site instead
 of silently reading the default.
 """
@@ -94,6 +96,70 @@ REGISTRY: dict[str, EnvVar] = {
         EnvVar("MM_MAX_MSG_BYTES", "int", str(16 << 20),
                "gRPC message cap on every server/channel",
                "utils/grpcopts.py"),
+        # The registry, plan distribution and greedy fallback's knobs
+        # (the cluster layer), with the reference's types and defaults.
+        EnvVar("MM_MAX_PLAN_BYTES", "int", str(12 << 20),
+               "published placement-plan byte budget",
+               "placement/plan_sync.py"),
+        EnvVar("MM_LOCK_DEBUG", "bool", "0",
+               "instrumented Lock/Condition wrappers: record per-thread "
+               "acquisition stacks and assert lock-acquisition order "
+               "against the witness graph derived by tools/analysis "
+               "(raises LockOrderViolation with a held-locks dump on an "
+               "inversion); read at lock CREATION time — set it before "
+               "constructing instances. Debug/test aid, not for "
+               "production", "utils/lockdebug.py"),
+        EnvVar("MM_RACE_DEBUG", "bool", "0",
+               "FastTrack-lite vector-clock happens-before data-race "
+               "sanitizer: mm_lock/mm_rlock/mm_condition carry "
+               "release->acquire clock edges (plus thread create/join, "
+               "pool submit->run, call_later schedule->fire), and "
+               "@racedebug.tracked classes record per-field access "
+               "epochs, raising DataRaceViolation with both conflicting "
+               "stacks on an unordered access. Read at lock/instance "
+               "CREATION time — set it before building a cluster. "
+               "Debug/test aid, not for production",
+               "utils/racedebug.py"),
+        EnvVar("MM_CLOCK_DEBUG", "bool", "0",
+               "runtime witness for the clock-discipline static rule: "
+               "while a VirtualClock is installed, wall-clock reads "
+               "(time.time/monotonic/sleep/perf_counter) from "
+               "modelmesh_tpu_torch code raise WallClockViolation unless the "
+               "call line carries a `#: wall-clock: <reason>` "
+               "annotation — the same grammar the static analyzer "
+               "enforces; read at clock-install time. Debug/test aid, "
+               "not for production", "utils/clockdebug.py"),
+        EnvVar("MM_LOAD_FAILURE_EXPIRY_MS", "int", str(15 * 60 * 1000),
+               "how long a recorded load failure excludes an instance "
+               "from re-load placement (default 15 min; reference "
+               "ModelMesh.java:219-224)", "records.py"),
+        EnvVar("MM_UPGRADE_MAX_UNAVAILABLE", "int", "1",
+               "rolling-upgrade wave width (reconfig/rolling.py): at most "
+               "this many instances drain concurrently per wave",
+               "reconfig/rolling.py"),
+        EnvVar("MM_FEEDBACK_DECAY_MS", "int", "5000",
+               "staleness horizon for piggybacked load feedback: a "
+               "peer's reported in-flight/queue-depth score decays "
+               "linearly to zero over this window, so silence degrades "
+               "the pick gracefully toward the greedy prior instead of "
+               "acting on stale load", "serving/route_cache.py"),
+        EnvVar("MM_ROUTE_CACHE", "bool", "1",
+               "memoize the per-model serve-route candidate set on the "
+               "request hot path (invalidated by registry version, "
+               "instances-view epoch, warming-clock bucket; failed "
+               "candidates demoted in place)",
+               "serving/route_cache.py"),
+        EnvVar("MM_ROUTE_CACHE_TTL_MS", "int", "1000",
+               "route-cache warming-clock bucket width: bounds how long a "
+               "time-dependent (warming/ride-the-load) routing decision "
+               "can be served from cache", "serving/route_cache.py"),
+        EnvVar("MM_ROUTE_D", "int", "2",
+               "power-of-d-choices width for the serve pick: each request "
+               "samples the greedy winner plus d-1 random cached "
+               "candidates and takes the lowest capability-weighted load "
+               "score (piggybacked feedback). 1 = the old single-winner "
+               "route cache, bit-identical (regression-pinned parity "
+               "mode)", "serving/route_cache.py"),
     ]
 }
 

@@ -436,9 +436,19 @@ def test_port_records_carry_the_strategy_fields():
     assert rec.free_units == 0 and rec.version == 0
 
 
-def test_fallback_is_required():
-    with pytest.raises(TypeError, match="fallback"):
-        te.TorchPlacementStrategy(device="cpu")
+def test_default_fallback_is_the_port_greedy_and_mesh_type_checked():
+    """No fallback handed in: the port's own GreedyStrategy, as the
+    reference defaults to its greedy (``jax_engine.py:1370``). A mesh of
+    another type still raises."""
+    from modelmesh_tpu_torch.placement.greedy import (
+        GreedyStrategy as PortGreedy,
+    )
+
+    strat = te.TorchPlacementStrategy(device="cpu")
+    assert type(strat.fallback) is PortGreedy
+    handed = GreedyStrategy()
+    assert te.TorchPlacementStrategy(
+        fallback=handed, device="cpu").fallback is handed
     with pytest.raises(NotImplementedError):
         te.TorchPlacementStrategy(fallback=GreedyStrategy(), mesh=object(),
                                   device="cpu")
