@@ -247,6 +247,40 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              count, as in the reference). One tick of a 10,000 x 100 fleet
              on the dense tier (lse_sinkhorn_step launched). Under 90 s.
 
+14. instance — the serving instance on the card: four port
+             ModelMeshInstance pods on one port InMemoryKV, each with its
+             own InProcessTorchLoader on the card (capacity 1/8 of the
+             registry's bytes as built) and a TorchPlacementStrategy on
+             the card (greedy fallback, plan follower); peers and weight
+             fetches called directly, with the wire's trace handoff;
+             batch_max 8, peer fetch on. 256 models with seeded ids over
+             MODEL_SPECS and MOE_SPECS in turn. The elected pod runs the
+             reaper's plan step before the traffic and after 500 of its
+             requests, the clients still sending
+             (launch counters zeroed just before each: lse_sinkhorn_step,
+             row_lse_partial and implied_load must launch; every pod
+             adopts the published bytes). A transformer larger than any
+             pod (transformer://d=1024,heads=8,layers=2) is placed and
+             served as a sharded group (within SERVING_TOL of the full
+             model). 8 client threads send 2,000 requests, Zipf(1.1) over
+             the models, each entering at a uniformly drawn live pod; after
+             1,000 one pod runs pre_shutdown (the drain) and leaves, the
+             next 200 are profiled (the device's idle share). A fused burst
+             (16 requests over models of one architecture on one pod, sent
+             at once), a second copy of a transformer streamed from its
+             holder (bitwise a store load), then quiescence: every
+             registry record's instance_ids equal to the pods whose cache
+             holds the model. Gates: every request answered (the burst's
+             too, each one counted) and equal to a direct TorchModelStore
+             predict on the card within MODEL_TOL, evictions, forwards and
+             fused dispatches > 0, every load decision of a client request
+             the adopted plan's wherever the plan has a usable target, and
+             the request served where that copy landed unless its load or
+             forward gave up, no copy loaded off the card. Prints latency by
+             path (local hit, forwarded, miss with load, after the drain),
+             loads, load ms, evictions, batch sizes, the plan's decisions
+             and the leader steps' stages.
+
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
@@ -262,6 +296,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3243,8 +3278,7 @@ def wait_until(pred, what: str, timeout: float = PLAN_WAIT_S) -> None:
     t0 = time.perf_counter()
     while not pred():
         if time.perf_counter() - t0 > timeout:
-            raise RuntimeError(f"chip_smoke: plan_loop: {what} not within "
-                               f"{timeout} s")
+            raise RuntimeError(f"chip_smoke: {what} not within {timeout} s")
         time.sleep(0.0002)
 
 
@@ -3631,6 +3665,839 @@ def phase_plan_loop(dev, card: str) -> dict:
     return result
 
 
+# -- phase instance: the serving instance on the card --------------------------
+
+INST_PREFIX = "mm"
+INST_PODS = 4
+INST_MODELS = 256
+INST_REQUESTS = 2000
+INST_CLIENTS = 8
+INST_ZIPF = 1.1
+INST_BATCH_MAX = 8
+# The fused burst: requests over models of one architecture resident on one
+# pod, sent at once from the client threads, rounds until one fuses.
+INST_BURST_MODELS = 4
+INST_BURST_REQUESTS = 16
+INST_BURST_ROUNDS = 5
+# A pod holds 1/8 of the registry's bytes as built: the four hold half of
+# it. (The loaders' size estimate, the reference's 2 bytes a parameter,
+# counts f32 models at half and MoE experts not at all: 1/8 of the
+# predicted bytes would hold a seventh of the registry.)
+INST_CAPACITY_SHARE = 8
+INST_SHUTDOWN_AT = 1000
+# The middle leader step runs once this many requests have been taken, the
+# client threads still sending.
+INST_MIDDLE_AT = 500
+INST_PROFILED = 200
+INST_SEED = 1414
+# Layer-streamable and larger than any pod's capacity (51 MB predicted
+# against a pod's 40 MB): served as a group. Its tokens are the default
+# transformer's (the same vocabulary and sequence).
+INST_SHARDED = ("transformer", "transformer://d=1024,heads=8,layers=2")
+INST_SHARDED_PAYLOAD = "transformer://"
+# The phase is host-bound: the families draw their weights on the host
+# (models/families.py), about 1.3 s a load under the traffic's threads. It
+# took 116.9-178.1 s on an H100 host (the slowest with its reference
+# answers drawn on 8 threads); the budget is 18% above the slowest.
+INST_BUDGET_S = 210.0
+INST_WAIT_S = 60.0
+
+
+def instance_ops():
+    """The serving instance's modules, imported where the phase needs them
+    (tools/sparse_kernel_times.py imports this module against trees from
+    before them)."""
+    import types
+
+    from modelmesh_tpu_torch.kv.memory import InMemoryKV
+    from modelmesh_tpu_torch.models import families as tf
+    from modelmesh_tpu_torch.models.server import (
+        InProcessTorchLoader, TorchModelStore, predict_size_estimate,
+    )
+    from modelmesh_tpu_torch.observability.metrics import Metric, NoopMetrics
+    from modelmesh_tpu_torch.observability.tracing import (
+        SPAN_HEADER, TRACE_HEADER, Tracer, incoming_parent_span,
+        incoming_trace_id,
+    )
+    from modelmesh_tpu_torch.placement import plan_sync
+    from modelmesh_tpu_torch.placement.strategy import LOAD_HERE
+    from modelmesh_tpu_torch.runtime.spi import ModelInfo
+    from modelmesh_tpu_torch.serving.entry import EntryState
+    from modelmesh_tpu_torch.serving.errors import ServiceUnavailableError
+    from modelmesh_tpu_torch.serving.instance import (
+        InstanceConfig, ModelMeshInstance, RoutingContext,
+    )
+    from modelmesh_tpu_torch.serving.tasks import reaper_plan_step
+
+    return types.SimpleNamespace(**locals())
+
+
+def counting_metrics(ops):
+    """A metrics backend that keeps counts and observed values by metric
+    (a NoopMetrics subclass, so the tracer and SLO tracker stay off the
+    request path as with no backend)."""
+    class CountingMetrics(ops.NoopMetrics):
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.counts: dict = {}
+            self.values: dict = {}
+
+        def inc(self, metric, value=1.0, model_id=""):
+            with self.lock:
+                self.counts[metric] = self.counts.get(metric, 0) + value
+
+        def observe(self, metric, value_ms, model_id=""):
+            with self.lock:
+                self.values.setdefault(metric, []).append(float(value_ms))
+
+    return CountingMetrics()
+
+
+def pod_loader(ops, capacity: int, dev):
+    """``InProcessTorchLoader`` on ``dev`` timing the store loads and
+    counting any copy that landed off the card (a predict runs where its
+    copy is)."""
+    class PodLoader(ops.InProcessTorchLoader):
+        def __init__(self):
+            super().__init__(capacity_bytes=capacity, device=dev)
+            self.lock = threading.Lock()
+            self.off_card = 0
+            self.load_ms: list = []
+
+        def _on_card(self, loaded, ms=None):
+            with self.lock:
+                if loaded.handle.device.type != "cuda":
+                    self.off_card += 1
+                if ms is not None:
+                    self.load_ms.append(ms)
+            return loaded
+
+        def load(self, model_id, info):
+            t = time.perf_counter()
+            out = super().load(model_id, info)
+            return self._on_card(out, (time.perf_counter() - t) * 1e3)
+
+        def load_from_stream(self, model_id, info, chunks,
+                             partial_ready=None):
+            return self._on_card(super().load_from_stream(
+                model_id, info, chunks, partial_ready))
+
+        def load_shard(self, model_id, info, shard_index, shard_count):
+            return self._on_card(super().load_shard(
+                model_id, info, shard_index, shard_count))
+
+        def load_shard_from_stream(self, model_id, info, shard_index,
+                                   shard_count, chunks):
+            return self._on_card(super().load_shard_from_stream(
+                model_id, info, shard_index, shard_count, chunks))
+
+    return PodLoader()
+
+
+class RequestLog(threading.local):
+    """Per client thread, the routing events of the request in flight:
+    ("decide", pod, model, answer, the plan's answer) for each load
+    decision, answers resolved to pod ids, and ("failed", pod, model) for
+    each load or forward to ``pod`` that gave up. Threads that send no
+    client request (chains, pools, the leader) log nothing."""
+
+    events = None
+
+    def note(self, *event) -> None:
+        if self.events is not None:
+            self.events.append(event)
+
+
+def plan_landings(events: list, served_by) -> list:
+    """Each decision of one request where the plan had a usable target:
+    (model, deciding pod, answer, the plan's answer, served_by, whether
+    the answer's load or forward gave up). Where it did not give up, the
+    request was served where the answer loaded the copy."""
+    out = []
+    for k, ev in enumerate(events):
+        if ev[0] != "decide" or ev[4] in (None, "raced"):
+            continue
+        _, pod, mid, got, want = ev
+        gave_up = ("failed", got, mid) in events[k + 1:]
+        out.append((mid, pod, got, want, served_by, gave_up))
+    return out
+
+
+class InstanceTransport:
+    """Direct-call peer transport between the pods, with the wire's trace
+    handoff (the sim harness's _peer_call and _peer_fetch): the receiving
+    pod re-opens the propagated trace in its own tracer."""
+
+    def __init__(self, ops, log: RequestLog):
+        self.ops = ops
+        self.log = log
+        self.pods: dict = {}
+
+    def _pod(self, endpoint: str):
+        pod = self.pods.get(endpoint)
+        if pod is None or not pod.alive:
+            raise self.ops.ServiceUnavailableError(endpoint)
+        return pod
+
+    def call(self, endpoint, model_id, method, payload, headers, ctx):
+        try:
+            return self._call(endpoint, model_id, method, payload, headers,
+                              ctx)
+        except Exception:
+            self.log.note("failed", endpoint, model_id)
+            raise
+
+    def _call(self, endpoint, model_id, method, payload, headers, ctx):
+        ops, pod = self.ops, self._pod(endpoint)
+        headers = list(headers)
+        tid = ops.incoming_trace_id(headers)
+        parent = ops.incoming_parent_span(headers)
+        if tid:
+            headers = [(k, v) for k, v in headers
+                       if k not in (ops.TRACE_HEADER, ops.SPAN_HEADER)]
+        with (pod.inst.tracer.trace(tid, model_id, method or "",
+                                    parent_span=parent)
+              if tid else contextlib.nullcontext()):
+            result = pod.inst.invoke_model(model_id, method, payload,
+                                           headers, ctx, sync=True)
+        result.feedback = pod.inst.load_feedback()
+        return result
+
+    def fetch(self, endpoint, model_id, chunk_index, fingerprint):
+        ops, pod = self.ops, self._pod(endpoint)
+        tid = ops.Tracer.current_trace_id() if chunk_index == 0 else ""
+        if not tid:
+            return pod.inst.handle_weight_fetch(model_id, chunk_index,
+                                                fingerprint)
+        with pod.inst.tracer.trace(
+            tid, model_id, "FetchWeights",
+            parent_span=ops.Tracer.current_span_id(),
+        ), pod.inst.tracer.span("serve-chunk", chunk=chunk_index):
+            return pod.inst.handle_weight_fetch(model_id, chunk_index,
+                                                fingerprint)
+
+
+class InstancePod:
+    """One port ModelMeshInstance with its own loader on the card and a
+    TorchPlacementStrategy on the card (greedy fallback), its load
+    decisions logged beside the adopted plan's answer."""
+
+    def __init__(self, ops, kv, idx: int, capacity: int, dev, transport):
+        self.iid = f"pod-{idx}"
+        self.alive = True
+        self.loader = pod_loader(ops, capacity, dev)
+        self.metrics = counting_metrics(ops)
+        self.strategy = TorchPlacementStrategy(device=dev)
+        self.decisions: list = []
+        self._decisions_lock = threading.Lock()
+        self._log_decisions(ops, transport.log)
+        self.inst = ops.ModelMeshInstance(
+            kv, self.loader,
+            ops.InstanceConfig(
+                instance_id=self.iid, endpoint=self.iid,
+                kv_prefix=INST_PREFIX, load_timeout_s=120,
+                min_churn_age_ms=0, batch_max=INST_BATCH_MAX,
+                peer_fetch=True),
+            strategy=self.strategy, peer_call=transport.call,
+            peer_fetch=transport.fetch, metrics=self.metrics)
+        self._log_local_loads(transport.log)
+        transport.pods[self.iid] = self
+
+    def _log_decisions(self, ops, log: RequestLog) -> None:
+        """Each load decision: (model, answer, the plan's answer), answers
+        resolved to pod ids; the plan's answer is None when the plan has no
+        usable target, "raced" when a follower adopted another plan during
+        the call."""
+        strat = self.strategy
+        choose = strat.choose_load_target
+
+        def here(req, target):
+            return (req.requesting_instance if target == ops.LOAD_HERE
+                    else target)
+
+        def logged(req, view):
+            plan = strat.plan
+            answer = choose(req, view)
+            got = here(req, answer)
+            want = None
+            if strat.plan is not plan:
+                want = "raced"
+            elif plan is not None and plan.age_ms() <= strat.plan_ttl_ms:
+                live = {iid for iid, _ in view.placeable()}
+                want = next((iid for iid in plan.lookup(req.model_id) or ()
+                             if iid not in req.exclude and iid in live
+                             and iid not in req.model.instance_ids), None)
+            with self._decisions_lock:
+                self.decisions.append((req.model_id, got, want))
+            log.note("decide", self.iid, req.model_id, got, want)
+            return answer
+
+        strat.choose_load_target = logged
+
+    def _log_local_loads(self, log: RequestLog) -> None:
+        """A local load that gave up (no room here, or it raised)."""
+        load_local = self.inst._load_local
+
+        def logged(model_id, mr, ctx):
+            try:
+                ce = load_local(model_id, mr, ctx)
+            except Exception:
+                log.note("failed", self.iid, model_id)
+                raise
+            if ce is None:
+                log.note("failed", self.iid, model_id)
+            return ce
+
+        self.inst._load_local = logged
+
+    def close(self) -> None:
+        self.alive = False
+        self.inst.shutdown()
+
+
+def instance_registry(ops):
+    """INST_MODELS seeded ids over MODEL_SPECS and MOE_SPECS in turn."""
+    rng = np.random.default_rng(INST_SEED)
+    specs = MODEL_SPECS + MOE_SPECS
+    ids: list = []
+    while len(ids) < INST_MODELS:
+        mid = f"m-{int(rng.integers(0, 1 << 32)):08x}"
+        if mid not in ids:
+            ids.append(mid)
+    return [(mid, specs[k % len(specs)]) for k, mid in enumerate(ids)]
+
+
+def instance_payloads(ops, dev) -> tuple:
+    """Per spec of MODEL_SPECS and MOE_SPECS: one seeded payload of one
+    row, from the family's input shape and type, and the bytes a built
+    model holds."""
+    payloads, sizes, build_ms = {}, {}, {}
+    for k, (mtype, path) in enumerate(MODEL_SPECS + MOE_SPECS):
+        t = time.perf_counter()
+        model = ops.tf.build_model("payload", mtype, path, device=dev)
+        build_ms[path] = (time.perf_counter() - t) * 1e3
+        payloads[path] = model_input(model, 1, INST_SEED + k).tobytes()
+        sizes[path] = model.size_bytes
+    emit({"phase": "instance_builds", "build_ms": build_ms})
+    return payloads, sizes
+
+
+def instance_requests(n_models: int) -> tuple:
+    """INST_REQUESTS draws: Zipf(INST_ZIPF) over the models (rank to model
+    through a seeded permutation), and a uniform entry draw."""
+    rng = np.random.default_rng(INST_SEED + 1)
+    ranks = np.arange(1, n_models + 1, dtype=np.float64)
+    p = ranks ** -INST_ZIPF
+    p /= p.sum()
+    perm = rng.permutation(n_models)
+    models = perm[rng.choice(n_models, size=INST_REQUESTS, p=p)]
+    return models, rng.random(INST_REQUESTS)
+
+
+def instance_traffic(ops, pods, registry, payloads, models, entries,
+                     lo: int, hi: int, tag: str, log: RequestLog,
+                     middle=None) -> list:
+    """Requests ``lo``..``hi`` from INST_CLIENTS threads, each entering at
+    a live pod (``entries`` picks one uniformly). Per request: the path
+    (local hit, forwarded, miss with load, from the registry record the
+    entry pod saw just before), latency, served_by, the answer or the
+    error, and its plan decisions (plan_landings). ``middle``, if given,
+    runs on this thread once INST_MIDDLE_AT requests have been taken,
+    while the clients go on sending."""
+    live = [p for p in pods if p.alive]
+    out: list = [None] * (hi - lo)
+    nxt = iter(range(lo, hi))
+    taken = threading.Semaphore(0)
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                k = next(nxt, None)
+            if k is None:
+                return
+            taken.release()
+            mid, (mtype, path) = registry[int(models[k])]
+            pod = live[int(entries[k] * len(live))]
+            rec = pod.inst.registry_view.get(mid)
+            loaded = bool(rec is not None and rec.instance_ids)
+            log.events = []
+            t = time.perf_counter()
+            try:
+                res = pod.inst.invoke_model(mid, "predict", payloads[path],
+                                            [])
+                err = None
+            except Exception as e:  # noqa: BLE001 — counted, fails the gate
+                res, err = None, f"{type(e).__name__}: {e}"
+            ms = (time.perf_counter() - t) * 1e3
+            events, log.events = log.events, None
+            if not loaded:
+                path_kind = "miss_load"
+            elif res is not None and res.served_by == pod.iid:
+                path_kind = "local"
+            else:
+                path_kind = "forwarded"
+            served_by = res.served_by if res else None
+            out[k - lo] = {"k": k, "model": mid, "entry": pod.iid,
+                           "path": path_kind, "tag": tag, "ms": ms,
+                           "served_by": served_by,
+                           "payload": res.payload if res else None,
+                           "error": err,
+                           "plan": plan_landings(events, served_by)}
+
+    threads = [threading.Thread(target=client, name=f"client-{c}")
+               for c in range(INST_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        if middle is not None:
+            for _ in range(INST_MIDDLE_AT - lo):
+                taken.acquire()
+            middle()
+    finally:
+        for th in threads:
+            th.join()
+    return out
+
+
+def instance_leader_step(ops, kv, pods, dev) -> dict:
+    """The reaper's plan step on the elected pod, launch counters zeroed
+    just before it; every live pod's follower adopts the published bytes."""
+    live = [p for p in pods if p.alive]
+    wait_until(lambda: sum(p.inst.is_leader for p in live) == 1,
+               "one elected pod", INST_WAIT_S)
+    leader = next(p for p in live if p.inst.is_leader)
+    inst = leader.inst
+    torch.cuda.synchronize(dev)
+    reset_all_launches()
+    t = time.perf_counter()
+    step = ops.reaper_plan_step(kv, INST_PREFIX, leader.strategy,
+                                inst.registry, inst.instances_view,
+                                inst.model_rpm)
+    step_ms = (time.perf_counter() - t) * 1e3
+    launches = all_launches()
+    check(step.plan is not None,
+          f"instance: the leader's step failed: {step.error!r}")
+    published = kv.get(ops.plan_sync.plan_key(INST_PREFIX))
+    gen = step.plan.generation
+    wait_until(lambda: all(p.strategy.plan is not None
+                           and p.strategy.plan.generation == gen
+                           for p in live),
+               "every pod adopting the plan", INST_WAIT_S)
+    for p in live:
+        check(p.strategy.plan.to_bytes() == published.value,
+              f"instance: {p.iid} adopted other bytes than published")
+    for name in ("lse_sinkhorn_step", "row_lse_partial", "implied_load"):
+        check(launches.get(name, 0) > 0,
+              f"instance: the leader's step never launched {name} "
+              f"({ {k: v for k, v in launches.items() if v} })")
+    return {"leader": leader.iid, "generation": gen,
+            "solver_path": step.plan.stats.get("solver_path"),
+            "models": len(step.records), "instances": len(step.views),
+            "plan_models": step.plan.num_models(),
+            "plan_bytes": step.nbytes, "views_ms": step.views_ms,
+            "scan_ms": step.scan_ms, "refresh_ms": step.refresh_ms,
+            "solve_ms": step.plan.solve_ms, "publish_ms": step.publish_ms,
+            "step_ms": step_ms,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def instance_sharded(ops, pods, payload: bytes, ref, dev) -> dict:
+    """The oversized transformer: registered, invoked, placed as a group,
+    its answer against the full model loaded on the reference store."""
+    mtype, path = INST_SHARDED
+    mid = "m-sharded"
+    cap = max(p.inst.cache.capacity for p in pods)
+    inst = pods[0].inst
+    inst.register_model(mid, ops.ModelInfo(mtype, path))
+    t = time.perf_counter()
+    res = inst.invoke_model(mid, "predict", payload, [])
+    ms = (time.perf_counter() - t) * 1e3
+    mr = inst.registry.get(mid)
+    check(mr is not None and mr.shard_count >= 2,
+          f"instance: {mid} not placed as a group ({mr})")
+    check(mr.size_units > cap,
+          f"instance: {mid} ({mr.size_units} units) fits a pod ({cap})")
+    ref.load(mid, mtype, path)
+    want = np.frombuffer(ref.predict_batch([(mid, payload)])[0], np.float32)
+    ref.unload(mid)
+    got = np.frombuffer(res.payload, np.float32)
+    check(got.shape == want.shape
+          and np.allclose(got, want, **SERVING_TOL),
+          f"instance: the sharded group's answer is off by "
+          f"{float(np.abs(got - want).max())}")
+    return {"model": mid, "spec": path, "shard_count": mr.shard_count,
+            "members": dict(mr.shard_instances), "size_units": mr.size_units,
+            "pod_capacity_units": cap, "served_by": res.served_by,
+            "first_request_ms": ms,
+            "max_abs_err": float(np.abs(got - want).max())}
+
+
+def instance_fused_burst(ops, pods, registry, payloads) -> tuple:
+    """INST_BURST_REQUESTS requests over up to INST_BURST_MODELS models of
+    one architecture resident on one pod, from INST_CLIENTS threads
+    released together: the requests that queue behind the first dispatch
+    ride one batch, fused when its models differ. Rounds (at most
+    INST_BURST_ROUNDS) until one fused; returns the summary and the rows."""
+    specs = dict(registry)
+    for pod in (p for p in pods if p.alive):
+        groups: dict = {}
+        for mid, ce, _ in pod.inst.cache.descending_items():
+            key = pod.loader.batch_group_key(mid)
+            if ce.state is ops.EntryState.ACTIVE and key.startswith("fuse:"):
+                groups.setdefault(key, []).append(mid)
+        mids = max(groups.values(), key=len, default=[])[:INST_BURST_MODELS]
+        if len(mids) >= 2:
+            break
+    else:
+        raise RuntimeError("chip_smoke: instance: no pod holds two models "
+                           "of one architecture")
+    store = pod.loader.store
+    fused0 = store.fused_dispatches
+    rows: list = []
+    lock = threading.Lock()
+    rounds = 0
+    while rounds < INST_BURST_ROUNDS and store.fused_dispatches == fused0:
+        rounds += 1
+        todo = [mids[k % len(mids)] for k in range(INST_BURST_REQUESTS)]
+        barrier = threading.Barrier(INST_CLIENTS)
+
+        def client():
+            barrier.wait()
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    mid = todo.pop()
+                t = time.perf_counter()
+                try:
+                    res = pod.inst.invoke_model(mid, "predict",
+                                                payloads[specs[mid][1]], [])
+                    err = None
+                except Exception as e:  # noqa: BLE001 — fails the gate
+                    res, err = None, f"{type(e).__name__}: {e}"
+                with lock:
+                    rows.append({"model": mid, "entry": pod.iid,
+                                 "path": "local", "tag": "burst",
+                                 "ms": (time.perf_counter() - t) * 1e3,
+                                 "served_by": res.served_by if res else None,
+                                 "payload": res.payload if res else None,
+                                 "error": err, "plan": []})
+
+        threads = [threading.Thread(target=client, name=f"burst-{c}")
+                   for c in range(INST_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    check(len(rows) == INST_BURST_REQUESTS * rounds,
+          f"instance: the fused burst answered {len(rows)} of "
+          f"{INST_BURST_REQUESTS * rounds} requests")
+    return {"pod": pod.iid, "models": mids, "rounds": rounds,
+            "requests": len(rows),
+            "fused_dispatches": store.fused_dispatches - fused0}, rows
+
+
+def instance_stream(ops, pods, registry, ref) -> dict:
+    """A second copy of a loaded transformer streamed from its holder into
+    a live pod without it (a LOAD_LOCAL_ONLY hop): the copy's leaves byte
+    for byte those of a store load."""
+    live = [p for p in pods if p.alive]
+    specs = dict(registry)
+    for mid, (mtype, path) in registry:
+        if mtype != "transformer" or "experts" in path:
+            continue
+        holders = [p for p in live
+                   if (ce := p.inst.cache.get_quietly(mid)) is not None
+                   and ce.state is ops.EntryState.ACTIVE]
+        takers = [p for p in live if p not in holders
+                  and p.inst.cache.get_quietly(mid) is None
+                  and p.inst.host_tier.peek(mid) is None]
+        if holders and takers:
+            break
+    else:
+        raise RuntimeError("chip_smoke: instance: no loaded transformer to "
+                           "stream")
+    taker = takers[0]
+    peer0 = taker.metrics.counts.get(ops.Metric.LOAD_FROM_PEER_COUNT, 0)
+    t = time.perf_counter()
+    taker.inst.invoke_model(
+        mid, None, b"", [],
+        ops.RoutingContext(hop=ops.RoutingContext.LOAD_LOCAL_ONLY),
+        sync=True)
+    ms = (time.perf_counter() - t) * 1e3
+    peer = taker.metrics.counts.get(ops.Metric.LOAD_FROM_PEER_COUNT, 0)
+    check(peer == peer0 + 1,
+          f"instance: {mid}'s copy on {taker.iid} was not streamed from a "
+          "peer")
+    got = taker.loader.store.get(mid)
+    mtype, path = specs[mid]
+    ref.load(mid, mtype, path)
+    want = ref.get(mid)
+    same = ([ops.tf.leaf_bytes(t) for t in ops.tf.leaves(got.params)]
+            == [ops.tf.leaf_bytes(t) for t in ops.tf.leaves(want.params)])
+    ref.unload(mid)
+    check(same, f"instance: {mid}'s streamed copy differs from a store load")
+    return {"model": mid, "from": [p.iid for p in holders],
+            "to": taker.iid, "ms": ms, "bitwise": same}
+
+
+def instance_quiesce(ops, pods) -> dict:
+    """Wait until no load is in flight and every live pod's cache agrees
+    with the registry, then hold every record's instance_ids to the pods
+    whose cache holds the model."""
+    live = [p for p in pods if p.alive]
+    resident = (ops.EntryState.ACTIVE, ops.EntryState.SHARDED)
+
+    def mismatches():
+        bad = []
+        for mid, mr in live[0].inst.registry.items():
+            holders = {p.iid for p in live
+                       if (ce := p.inst.cache.get_quietly(mid)) is not None
+                       and ce.state in resident}
+            if set(mr.instance_ids) != holders or mr.loading_instances:
+                bad.append((mid, sorted(mr.instance_ids), sorted(holders)))
+        return bad
+
+    t = time.perf_counter()
+    try:
+        wait_until(lambda: not mismatches(), "the registry settling",
+                   INST_WAIT_S)
+    except RuntimeError:
+        check(False, f"instance: registry and caches disagree: "
+              f"{mismatches()[:5]}")
+    return {"settle_ms": (time.perf_counter() - t) * 1e3,
+            "records": sum(1 for _ in live[0].inst.registry.items())}
+
+
+def latency_by_path(rows) -> dict:
+    out = {}
+    for kind in ("local", "forwarded", "miss_load"):
+        ms = [r["ms"] for r in rows if r["path"] == kind]
+        out[kind] = ({"n": len(ms), "median_ms": float(np.median(ms)),
+                      "p99_ms": float(np.percentile(ms, 99))}
+                     if ms else {"n": 0})
+    return out
+
+
+def phase_instance(dev, card: str) -> dict:
+    """The serving instance on the card (module docstring, phase 14)."""
+    ops = instance_ops()
+    t0 = time.perf_counter()
+    stages: dict = {}
+    last = [t0]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stages[name] = now - last[0]
+        last[0] = now
+        emit({"phase": "instance_stage", "stage": name, "s": stages[name]})
+
+    registry = instance_registry(ops)
+    payloads, sizes = instance_payloads(ops, dev)
+    predicted = sum(ops.predict_size_estimate(t, p) for _, (t, p) in registry)
+    built = sum(sizes[p] for _, (_, p) in registry)
+    capacity = built // INST_CAPACITY_SHARE
+    result = {"phase": "instance", "card": card, "pods": INST_PODS,
+              "models": len(registry), "requests": INST_REQUESTS,
+              "clients": INST_CLIENTS, "zipf": INST_ZIPF,
+              "batch_max": INST_BATCH_MAX, "registry_predicted_bytes":
+              predicted, "registry_built_bytes": built,
+              "pod_capacity_bytes": capacity}
+    ref = ops.TorchModelStore(1 << 36, device=dev)
+    kv = ops.InMemoryKV()
+    log = RequestLog()
+    transport = InstanceTransport(ops, log)
+    pods: list = []
+    launches: dict = {}
+    try:
+        for k in range(INST_PODS):
+            pods.append(InstancePod(ops, kv, k, capacity, dev, transport))
+        for p in pods:
+            p.inst.instances_view.wait_for(
+                lambda v: len(v) >= INST_PODS, timeout=INST_WAIT_S)
+        for mid, (mtype, path) in registry:
+            pods[0].inst.register_model(mid, ops.ModelInfo(mtype, path))
+        for p in pods:
+            wait_until(lambda p=p: len(p.inst.registry_view) >= len(registry),
+                       f"{p.iid}'s view of the registry", INST_WAIT_S)
+        result["setup_s"] = time.perf_counter() - t0
+        stage("setup")
+        steps = {}
+        steps["before"] = instance_leader_step(ops, kv, pods, dev)
+        add_launches(launches, steps["before"]["launches"])
+        stage("leader_before")
+        result["sharded"] = instance_sharded(
+            ops, pods, payloads[INST_SHARDED_PAYLOAD], ref, dev)
+        stage("sharded")
+        models, entries = instance_requests(len(registry))
+
+        def middle():
+            # Launches counted while the step ran, the traffic's included.
+            steps["middle"] = instance_leader_step(ops, kv, pods, dev)
+            add_launches(launches, steps["middle"]["launches"])
+            stage("traffic_to_middle")
+
+        t = time.perf_counter()
+        rows = instance_traffic(ops, pods, registry, payloads, models,
+                                entries, 0, INST_SHUTDOWN_AT, "first", log,
+                                middle)
+        first_s = time.perf_counter() - t
+        stage("traffic_first")
+        # One pod drains (survivor pre-copy, host-tier demotion,
+        # deregistration) and leaves; the traffic goes on against the rest.
+        leaving = next(p for p in reversed(pods) if not p.inst.is_leader)
+        t = time.perf_counter()
+        leaving.inst.pre_shutdown()
+        drain_ms = (time.perf_counter() - t) * 1e3
+        leaving.close()
+        stage("drain")
+        from torch.profiler import ProfilerActivity, profile as profiler
+
+        torch.cuda.synchronize(dev)
+        lo, hi = INST_SHUTDOWN_AT, INST_SHUTDOWN_AT + INST_PROFILED
+        with profiler(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rows += instance_traffic(ops, pods, registry, payloads, models,
+                                     entries, lo, hi, "after_shutdown", log)
+            torch.cuda.synchronize(dev)
+            window_ms = (time.perf_counter() - t) * 1e3
+        by_name = device_ms_by_kernel(prof)
+        busy = sum(ms for ms, _ in by_name.values())
+        t = time.perf_counter()
+        rows += instance_traffic(ops, pods, registry, payloads, models,
+                                 entries, hi, INST_REQUESTS,
+                                 "after_shutdown", log)
+        second_s = window_ms / 1e3 + time.perf_counter() - t
+        stage("traffic_after_shutdown")
+        fused_traffic = sum(p.loader.store.fused_dispatches for p in pods)
+        result["fused_burst"], burst_rows = instance_fused_burst(
+            ops, pods, registry, payloads)
+        rows += burst_rows
+        stage("fused_burst")
+        result["stream"] = instance_stream(ops, pods, registry, ref)
+        stage("stream")
+        result["quiesce"] = instance_quiesce(ops, pods)
+        stage("quiesce")
+        # Gates on the answers: every request answered, each answer the
+        # reference store's predict of the same model and payload.
+        errors = [r for r in rows if r["error"]]
+        check(not errors, f"instance: {len(errors)} requests failed, first "
+              f"{errors[:3]}")
+        specs = dict(registry)
+
+        def reference(mid):
+            # One model at a time: the weights are drawn on the host, and
+            # threads drawing at once take longer (on an H100 host, 42.6 s
+            # on 8 threads against 24.1 s on one).
+            mtype, path = specs[mid]
+            ref.load(mid, mtype, path)
+            try:
+                return np.frombuffer(
+                    ref.predict_batch([(mid, payloads[path])])[0],
+                    np.float32)
+            finally:
+                ref.unload(mid)
+
+        wants = {mid: reference(mid) for mid in {r["model"] for r in rows}}
+        worst = {}
+        for r in rows:
+            mtype, path = specs[r["model"]]
+            err = check_close(np.frombuffer(r["payload"], np.float32),
+                              wants[r["model"]], MODEL_TOL[mtype],
+                              f"instance: {r['model']} ({path}) via "
+                              f"{r['entry']}")
+            worst[path] = max(worst.get(path, 0.0), err)
+        stage("answers")
+        counts: dict = {}
+        batch_sizes: list = []
+        for p in pods:
+            for metric, v in p.metrics.counts.items():
+                counts[metric.name] = counts.get(metric.name, 0) + v
+            batch_sizes += p.metrics.values.get(ops.Metric.BATCH_OCCUPANCY,
+                                                [])
+        load_ms = [ms for p in pods for ms in p.loader.load_ms]
+        off_card = sum(p.loader.off_card for p in pods)
+        fused = sum(p.loader.store.fused_dispatches for p in pods)
+        decisions = [d for p in pods for d in p.decisions]
+        # Each plan decision of a client request: the instance took the
+        # plan's answer, and unless that load or forward gave up, the
+        # request was served where the copy landed.
+        landings = [d for r in rows for d in r["plan"]]
+        wrong = [d for d in landings
+                 if d[2] != d[3] or (not d[5] and d[4] != d[3])]
+        check(not wrong, f"instance: {len(wrong)} of {len(landings)} plan "
+              f"decisions did not land where the plan said "
+              f"(model, pod, answer, plan, served_by, gave_up): {wrong[:5]}")
+        check(counts.get("EVICT_COUNT", 0) > 0, "instance: no eviction")
+        check(counts.get("INVOKE_FORWARD_COUNT", 0) > 0,
+              "instance: no forward")
+        check(fused > 0, "instance: no fused dispatch")
+        check(off_card == 0,
+              f"instance: {off_card} copies loaded off the card")
+        result.update({
+            "leader_steps": steps,
+            "latency_first": latency_by_path(
+                [r for r in rows if r["tag"] == "first"]),
+            "latency_after_shutdown": dict(
+                latency_by_path([r for r in rows
+                                 if r["tag"] == "after_shutdown"]),
+                all={"n": sum(r["tag"] == "after_shutdown" for r in rows),
+                     "median_ms": float(np.median(
+                         [r["ms"] for r in rows
+                          if r["tag"] == "after_shutdown"])),
+                     "p99_ms": float(np.percentile(
+                         [r["ms"] for r in rows
+                          if r["tag"] == "after_shutdown"], 99))}),
+            "traffic_s": {"first": first_s, "after_shutdown": second_s},
+            "drained": {"pod": leaving.iid, "ms": drain_ms},
+            "load_ms": ({"n": len(load_ms),
+                         "median": float(np.median(load_ms)),
+                         "p99": float(np.percentile(load_ms, 99)),
+                         "max": float(np.max(load_ms))}
+                        if load_ms else None),
+            "evictions": counts.get("EVICT_COUNT", 0),
+            "forwards": counts.get("INVOKE_FORWARD_COUNT", 0),
+            "load_sources": {k: counts.get(k, 0) for k in (
+                "LOAD_FROM_STORE_COUNT", "LOAD_FROM_PEER_COUNT",
+                "LOAD_FROM_HOST_TIER_COUNT", "HOST_TIER_DEMOTE_COUNT")},
+            "batch_sizes": {str(int(s)): batch_sizes.count(s)
+                            for s in sorted(set(batch_sizes))},
+            "fused_dispatches": fused,
+            "fused_dispatches_in_traffic": fused_traffic,
+            "decisions": {
+                "total": len(decisions),
+                "plan": sum(1 for d in decisions
+                            if d[2] not in (None, "raced")),
+                "fallback": sum(1 for d in decisions if d[2] is None),
+                "raced": sum(1 for d in decisions if d[2] == "raced"),
+                "plan_in_requests": len(landings),
+                "plan_gave_up": sum(1 for d in landings if d[5])},
+            "max_err_by_spec": worst,
+            "profiled": {"requests": INST_PROFILED, "window_ms": window_ms,
+                         "device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / window_ms},
+        })
+    finally:
+        for p in pods:
+            if p.alive:
+                p.close()
+        kv.close()
+        # The pools' workers leave once their queued unloads are done.
+        t = time.perf_counter()
+        while (any(p.inst._unload_pool.active_workers
+                   or p.inst._cleanup_pool.active_workers for p in pods)
+               and time.perf_counter() - t < INST_WAIT_S):
+            time.sleep(0.01)
+    result.update(launches_in_run=launches, stages_s=stages,
+                  seconds=time.perf_counter() - t0)
+    emit(result)
+    check(result["seconds"] < INST_BUDGET_S,
+          f"instance took {result['seconds']:.1f} s, over {INST_BUDGET_S} s")
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -3680,6 +4547,7 @@ def main() -> int:
     phase_models(dev, card)
     phase_runtime_mesh(dev, card)
     plan_loop = phase_plan_loop(dev, card)
+    instance = phase_instance(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -3733,6 +4601,8 @@ def main() -> int:
         entry["sharded_launches"] = sharded["launches_in_run"].get(
             entry["name"], 0)
         entry["plan_loop_launches"] = plan_loop["launches_in_run"].get(
+            entry["name"], 0)
+        entry["instance_launches"] = instance["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

@@ -334,8 +334,8 @@ class BucketedKVTable(KVTable[R]):
 
     Legacy FLAT keys (``<prefix><id>`` from pre-bucketing versions) are
     normally NOT read by this table: migrate them with
-    ``python -m modelmesh_tpu.kv.migrate`` (the migrator is not ported
-    yet; the key layout is the same). During a FENCED LIVE
+    ``kv/migrate.py`` (``migrate_flat_registry`` and its live twin; the
+    command line comes with the launcher). During a FENCED LIVE
     migration (kv/migrate.py: the operator advertises a migration epoch
     every instance's ``migration_fence`` watches) the table switches to
     dual-read + move-on-write semantics:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from modelmesh_tpu_torch.utils.clock import now_ms
+from modelmesh_tpu_torch.cache.lru import now_ms
 from modelmesh_tpu_torch.placement.strategy import (
     LOAD_HERE,
     ClusterView,

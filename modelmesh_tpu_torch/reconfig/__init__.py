@@ -1,2 +1,2 @@
 """Zero-downtime reconfiguration: the rolling-upgrade planner
-(``rolling.py``; the drain controller is not ported yet)."""
+(``rolling.py``) and the instance drain controller (``drain.py``)."""

@@ -25,7 +25,7 @@ import os
 import threading
 from typing import Optional, Sequence
 
-from modelmesh_tpu_torch.utils.clock import now_ms
+from modelmesh_tpu_torch.cache.lru import now_ms
 from modelmesh_tpu_torch.records import InstanceRecord
 
 log = logging.getLogger(__name__)

@@ -66,7 +66,7 @@ import random
 import zlib
 from typing import Optional, Sequence
 
-from modelmesh_tpu_torch.utils.clock import now_ms
+from modelmesh_tpu_torch.cache.lru import now_ms
 from modelmesh_tpu_torch.utils.lockdebug import mm_lock
 from modelmesh_tpu_torch.utils import racedebug
 

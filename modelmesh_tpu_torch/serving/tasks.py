@@ -8,10 +8,13 @@ instance's ``PlanFollower`` (``placement/plan_sync.py``) installs it. A
 failed refresh or publish is logged and swallowed: the plan is advisory,
 and greedy answers until the next pass.
 
-``BackgroundTasks`` (publisher, rate task, janitor, reaper) comes with
-the instance slice; its ``_reaper_tick`` will call ``reaper_plan_step``
-and go on to the gauges, the prune pass and proactive loading with the
-records and views the step returns.
+The port's ``ModelMeshInstance`` (``serving/instance.py``) is the
+caller's side: the step takes an instance's ``store``, ``registry``,
+``instances_view`` and ``model_rpm`` with the instance's own strategy.
+``BackgroundTasks`` (publisher, rate task, janitor, reaper, with
+``autoscale/``) is not ported yet; its ``_reaper_tick`` will call
+``reaper_plan_step`` and go on to the gauges, the prune pass and
+proactive loading with the records and views the step returns.
 """
 
 from __future__ import annotations

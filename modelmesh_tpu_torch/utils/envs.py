@@ -1,11 +1,13 @@
 """Registry of the environment knobs the port reads.
 
 The port's own copy of the reference registry's accessors, holding only
-the knobs the port reads: the placement solve's, the model runtime's and
-the cluster layer's (the KV tables, plan distribution, greedy fallback,
-route cache and the lock/race/clock debug aids). ``get`` raises ``KeyError``
-for an unregistered name, so a typo'd knob fails at the call site instead
-of silently reading the default.
+the knobs the port reads: the placement solve's, the model runtime's, the
+cluster layer's (the KV tables, plan distribution, greedy fallback, route
+cache and the lock/race/clock debug aids) and the serving instance's.
+One knob is registered ahead of its reader: ``MM_LOG_REQUEST_HEADERS``,
+read by ``observability/logctx.py``, which is not ported yet. ``get``
+raises ``KeyError`` for an unregistered name, so a typo'd knob fails at
+the call site instead of silently reading the default.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class EnvVar:
     name: str
-    kind: str          # str | int | float | bool
+    kind: str          # str | int | float | bool | list
     default: str
     help: str
     consumer: str      # module that reads it
@@ -160,6 +162,126 @@ REGISTRY: dict[str, EnvVar] = {
                "score (piggybacked feedback). 1 = the old single-winner "
                "route cache, bit-identical (regression-pinned parity "
                "mode)", "serving/route_cache.py"),
+        # The serving instance's knobs (its cache, load pipeline,
+        # batching, admission, observability, weight transfer and drain),
+        # with the reference's types and defaults.
+        EnvVar("MM_ADMISSION", "bool", "0",
+               "SLO-burn-rate admission control at the external-API "
+               "edge (serving/admission.py): when a class burns error "
+               "budget at/above 1x, lower-priority classes (MM_SLO_SPEC "
+               "order; the first clause is never shed) are token-bucket "
+               "throttled — briefly queued, then shed with a typed "
+               "overload error (RESOURCE_EXHAUSTED + mm-overload "
+               "trailer). Off (default): zero request-path cost",
+               "serving/admission.py"),
+        EnvVar("MM_ADMISSION_QUEUE_MS", "int", "50",
+               "bounded wait for a token before a throttled request is "
+               "shed: absorbs bursts without letting sustained overload "
+               "build a real queue; 0 sheds immediately",
+               "serving/admission.py"),
+        EnvVar("MM_BATCH_MAX", "int", "8",
+               "continuous-batching micro-batch ceiling on the runtime "
+               "data plane (serving/batching.py): concurrent requests "
+               "for one model (or one fused family group) ride a single "
+               "batched dispatch of up to this many requests; <= 1 "
+               "disables the batch queue entirely. Engaged only for "
+               "loaders with a real batched dispatch "
+               "(supports_batched_dispatch) or an injected batched "
+               "runtime call — an uncontended request always takes the "
+               "zero-copy passthrough", "serving/instance.py"),
+        EnvVar("MM_BATCH_WINDOW_US", "int", "0",
+               "micro-batch fill window (microseconds): how long a batch "
+               "leader waits for parked requests to fill the batch "
+               "before dispatching below MM_BATCH_MAX. 0 (default) "
+               "dispatches immediately — batches still form behind "
+               "in-flight dispatches (continuous batching), with no "
+               "timer on the uncontended path", "serving/instance.py"),
+        EnvVar("MM_DRAIN_ON_SIGTERM", "bool", "1",
+               "graceful drain on SIGTERM (reconfig/drain.py): mark the "
+               "instance DRAINING, pre-copy hot models to survivors over "
+               "the transfer/ peer-stream path (host-tier demote the cold "
+               "ones), wait for survivor copies to be servable, then "
+               "deregister; 0 falls back to the legacy immediate "
+               "shutting_down migration", "serving/instance.py"),
+        EnvVar("MM_DRAIN_TIMEOUT_MS", "int", "30000",
+               "drain deadline: models not yet migrated when it expires "
+               "are deregistered without pre-copy (bounded serving gap "
+               "instead of an unbounded shutdown)",
+               "serving/instance.py"),
+        EnvVar("MM_FLIGHTREC_EVENTS", "int", "4096",
+               "flight-recorder ring capacity (structured events: state "
+               "transitions, placement decisions, CAS outcomes, transfer "
+               "faults, drain phases); 0 disables recording; dump via "
+               "the ***FLIGHTREC*** diagnostic id",
+               "observability/flightrec.py"),
+        EnvVar("MM_HOST_TIER_BYTES", "int", str(256 << 20),
+               "host-RAM staging tier budget per instance (bytes): "
+               "device-evicted copies demote to a host snapshot so "
+               "re-warm is a device copy and peer fetches are served "
+               "O(1) from host RAM; 0 disables the tier (and demotion)",
+               "serving/instance.py"),
+        EnvVar("MM_KV_READ_ONLY", "int", "0",
+               "KV-migration read-only mode: block model add/remove, "
+               "suppress reaper pruning", "serving/instance.py"),
+        EnvVar("MM_LOAD_FASTPATH", "bool", "1",
+               "pipelined model-load lifecycle: activate entries as soon "
+               "as the runtime load returns (sizing becomes an overlapped "
+               "guarded correction) and fan chained secondary copies out "
+               "concurrently at claim time instead of hop-by-hop after "
+               "each completion", "serving/instance.py"),
+        EnvVar("MM_LOG_REQUEST_HEADERS", "list", "",
+               "headers copied into the per-request log context "
+               "(header or header=field); registered ahead of its "
+               "reader, not yet ported", "observability/logctx.py"),
+        EnvVar("MM_PEER_FETCH", "bool", "1",
+               "peer-to-peer weight streaming on scale-up: a new copy "
+               "streams chunked weights from an already-loaded live peer "
+               "(or a host-tier holder) over the mesh-internal "
+               "FetchWeights channel instead of the model store, with "
+               "store fallback on peer death or stream error; inert for "
+               "loaders without supports_weight_streaming",
+               "serving/instance.py"),
+        EnvVar("MM_PUBLISH_COALESCE_MS", "int", "100",
+               "trailing-flush window coalescing NON-forced instance-"
+               "record publishes (0 = publish inline; force=True always "
+               "bypasses): a mass load/unload storm issues O(1) "
+               "advertisement puts instead of O(models)",
+               "serving/instance.py"),
+        EnvVar("MM_SHARDED", "bool", "1",
+               "sharded execution for oversized models: a model too big "
+               "for any single instance is placed as a multi-instance "
+               "GROUP (one weight shard per member, co-planned by the "
+               "placement strategy) and served through the SHARDED entry "
+               "state; routing targets only COMPLETE groups. Inert for "
+               "loaders without supports_sharded_execution — without it "
+               "an oversized model fails to place exactly as before",
+               "serving/instance.py"),
+        EnvVar("MM_SHARDED_MAX_SHARDS", "int", "8",
+               "ceiling on placement-group width: an oversized model "
+               "shards into the SMALLEST K whose per-shard share fits "
+               "the fleet, up to this many members; a model needing "
+               "more fails to place", "serving/instance.py"),
+        EnvVar("MM_SLO_SPEC", "str",
+               "default:p99<250ms,availability>0.999",
+               "declarative per-model-class SLOs, ';'-separated classes: "
+               "class:obj,obj where obj is p50<Nms / p95<Nms / p99<Nms / "
+               "availability>F; class = model_type, 'default' catches "
+               "the rest (observability/slo.py grammar)",
+               "serving/instance.py"),
+        EnvVar("MM_SLO_WINDOW_MS", "int", "60000",
+               "sliding window over which SLO attainment / burn rate are "
+               "computed from request completions",
+               "observability/slo.py"),
+        EnvVar("MM_TRACE_CAPACITY", "int", "256",
+               "bounded ring of finished traces kept per instance "
+               "(retrievable via the ***TRACES*** diagnostic id)",
+               "observability/tracing.py"),
+        EnvVar("MM_TRACE_SAMPLE", "int", "32",
+               "head-sampling for MINTED trace roots: 1-in-N external "
+               "requests open a trace (1 = trace everything); adopted "
+               "mm-trace-id headers always record, so a sampled request "
+               "is traced end-to-end across every hop",
+               "serving/instance.py"),
     ]
 }
 

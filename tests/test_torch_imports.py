@@ -32,6 +32,15 @@ print(json.dumps({"modules": names, "leaked": leaked,
 """
 
 
+INSTANCE_MODULES = [
+    "utils.pool", "serving.rate", "serving.errors", "cache", "cache.lru",
+    "observability", "observability.metrics", "observability.tracing",
+    "observability.flightrec", "observability.slo", "serving.admission",
+    "serving.entry", "serving.batching", "transfer", "transfer.protocol",
+    "transfer.manager", "kv.migrate", "serving.instance", "reconfig.drain",
+]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO)
@@ -45,6 +54,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"modelmesh_tpu_torch.parallel.moe",
             "modelmesh_tpu_torch.placement.refresh_loop"} <= set(
                 got["modules"])
+    # The serving instance's slice: the instance and every module it
+    # imports, beside the rest.
+    assert {f"modelmesh_tpu_torch.{m}" for m in INSTANCE_MODULES} <= set(
+        got["modules"])
     assert got["leaked"] == []
     assert got["libs"] == []
 
