@@ -281,6 +281,52 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              loads, load ms, evictions, batch sizes, the plan's decisions
              and the leader steps' stages.
 
+15. server — the serving pods over real localhost gRPC on the card, wired
+             as the reference launcher wires them (serving/main.py): three
+             port ModelMeshInstance pods on one port InMemoryKV (kv prefix
+             mm), the first two each with an InProcessTorchLoader on the
+             card, the third a SidecarRuntime in front of
+             start_torch_runtime on the card (its weight fetches fall back
+             to store loads); each a TorchPlacementStrategy on the card,
+             BootstrapProbation.from_env(), an UpgradeTracker, peers
+             through make_grpc_peer_call / make_grpc_peer_fetch over one
+             shared PeerChannels, a MeshServer (port 0) with a
+             VModelManager and build_processor([an http:// sink on
+             localhost]), BackgroundTasks in burn mode at accelerated
+             cadences (publisher 1 s, autoscaler 0.5 s, janitor 2 s,
+             reaper 3 s), a ServingConfigBinder, a PreStopServer, and
+             register_static_models (two linear models on the first pod).
+             Every client call goes over gRPC: RegisterModel for 20 models
+             (4 of each MODEL_SPECS family but linear), EnsureLoaded and
+             GetModelStatus, 240 then 120 Zipf(1.1) Predicts from 4
+             threads with the mm-model-id header, a vmodel set and rolled
+             over to a new target with requests by mm-vmodel-id, an
+             UnregisterModel at a pod without the copy (the holder drops
+             it on the deletion watch) and another with the holder's watch
+             listener detached (its janitor drops it). A burn injected
+             into the leader's SLO window for the linear class (no client
+             request records into it) makes its autoscaler add a copy.
+             A non-leader pod drains through GET /prestop (the reference
+             hook answers GET); its /ready then answers 503 and its
+             models answer from the survivors. The launch counters are
+             zeroed after the setup and read at the end; the reaper's
+             step (serving/tasks.py reaper_plan_step) is recorded as the
+             leader's BackgroundTasks call it. Gates: every answer equal
+             to a direct TorchModelStore predict within MODEL_TOL; at
+             least two of the leader's reaper ticks published a plan and
+             every live pod adopted each one's bytes; the ticks launched
+             lse_sinkhorn_step, row_lse_partial and implied_load; an
+             autoscale-up in the leader's decision log and a copy more
+             in the registry; both unregistered copies dropped, the
+             second by the janitor's thread; the vmodel's active id moved
+             to the new target; /ready 503 on the drained pod; the sink
+             got a request and a response payload for every call; at
+             quiescence every record's holders are the pods whose cache
+             holds the model; the native splicer built and agreed with
+             its Python path on 200 seeded messages (the runtime's
+             payload is raw tensor bytes, with no id field for the
+             in-body path); under 150 s. One server_stage line per stage.
+
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
 device it exits non-zero before printing any result.
@@ -435,6 +481,11 @@ MOE_TIE_MARGIN = 1e-3
 # the CPU tests' bf16-level 1e-2.
 MOE_TOL = (0.0, 1e-3)
 FUSED_GROUP = 8
+# The fused groups held against solo calls: the layer-streamable families
+# at their default specs, and the transformer spec whose fused answers
+# cuBLAS's split-K once moved by 1.5e-4 of max|ref|.
+FUSED_SPECS = [("mlp", "mlp://"), ("transformer", "transformer://"),
+               ("transformer", "transformer://d=64,heads=4,seq=128,layers=2")]
 PREDICT_CALLS = 50
 DISPATCH_ROUNDS = 20
 # Card against the port's CPU path, and batched or fused calls against
@@ -443,7 +494,10 @@ DISPATCH_ROUNDS = 20
 # max|ref|, fused groups within 9.4e-7. Another summation order (cuBLAS's,
 # a batched product's) moves f32 sums in the last bits; a product that ran
 # in bf16 where the reference promotes it to f32 (or a TF32 matmul) would
-# move the logits by ~1e-3 of max|ref| and fails.
+# move the logits by ~1e-3 of max|ref| and fails. So does cuBLAS's split-K,
+# which the port turns off (modelmesh_tpu_torch/__init__.py): with it, a
+# fused group of 8 transformers (d=64, seq=128) answered 1.5e-4 of max|ref|
+# from its solo calls (tools/batch_parity.py).
 MODEL_TOL = {"mlp": (1e-5, 1e-5), "linear": (1e-5, 1e-5),
              "conv": (0.0, 1e-4), "embedding": (0.0, 1e-4),
              "transformer": (0.0, 1e-4)}
@@ -2692,41 +2746,44 @@ def profile_share(fn) -> dict:
 
 
 def batch_on_card(dev) -> dict:
-    """``InProcessTorchLoader`` on the card: one same-model micro-batch of
-    FUSED_GROUP requests, and one fused group each of FUSED_GROUP mlps and
-    transformers (default specs) against the per-model path, timed both
-    ways; a load from a CPU loader's weight stream."""
+    """``InProcessTorchLoader`` on the card: per row-independent spec of
+    MODEL_SPECS, one same-model micro-batch of FUSED_GROUP requests
+    against solo calls; per spec of FUSED_SPECS, one fused group of
+    FUSED_GROUP models against the per-model path, timed both ways; a load
+    from a CPU loader's weight stream."""
     from modelmesh_tpu_torch.models.server import InProcessTorchLoader
     from modelmesh_tpu_torch.models import families
     from modelmesh_tpu_torch.runtime.spi import BatchItem, ModelInfo
 
     ld = InProcessTorchLoader(capacity_bytes=1 << 30, device=dev)
-    out = {}
+    out = {"same_model": {}, "fused": {}}
     mlp = ModelInfo("mlp", "mlp://")
-    ld.load("same", mlp)
-    model = ld.store.get("same")
-    pls = [model_input(model, 1 + i % 3, SEED + i).tobytes()
-           for i in range(FUSED_GROUP)]
-    solo = [ld.call_model("same", "", p) for p in pls]
-    batched = ld.call_model_batch([BatchItem("same", payload=p)
-                                   for p in pls])
-    out["same_model"] = {
-        "requests": FUSED_GROUP,
-        "max_err_vs_solo": max(
-            check_close(np.frombuffer(b, np.float32),
-                        np.frombuffer(a, np.float32), MODEL_TOL["mlp"],
-                        "same-model batch")
-            for a, b in zip(solo, batched)),
-    }
-    for family, path in (("mlp", "mlp://"), ("transformer",
-                                             "transformer://")):
+    for k, (family, path) in enumerate(MODEL_SPECS):
+        mid = f"same-{k}"
+        ld.load(mid, ModelInfo(family, path))
+        model = ld.store.get(mid)
+        pls = [model_input(model, 1 + i % 3, SEED + i).tobytes()
+               for i in range(FUSED_GROUP)]
+        solo = [ld.call_model(mid, "", p) for p in pls]
+        batched = ld.call_model_batch([BatchItem(mid, payload=p)
+                                       for p in pls])
+        out["same_model"][path] = {
+            "requests": FUSED_GROUP,
+            "max_err_vs_solo": max(
+                check_close(np.frombuffer(b, np.float32),
+                            np.frombuffer(a, np.float32), MODEL_TOL[family],
+                            f"{path} same-model batch")
+                for a, b in zip(solo, batched)),
+        }
+        ld.unload(mid)
+    for k, (family, path) in enumerate(FUSED_SPECS):
         info = ModelInfo(family, path)
-        mids = [f"{family}-{i}" for i in range(FUSED_GROUP)]
+        mids = [f"fused-{k}-{i}" for i in range(FUSED_GROUP)]
         for mid in mids:
             ld.load(mid, info)
         rep = ld.store.get(mids[0])
         check(len({ld.batch_group_key(m) for m in mids}) == 1,
-              f"{family}: the group does not share a batch key")
+              f"{path}: the group does not share a batch key")
         pls = [model_input(rep, 1 + i % 2, SEED + 10 + i).tobytes()
                for i in range(FUSED_GROUP)]
         items = [BatchItem(m, payload=p) for m, p in zip(mids, pls)]
@@ -2734,11 +2791,11 @@ def batch_on_card(dev) -> dict:
         fused = ld.call_model_batch(items)
         counts = (ld.store.fused_dispatches, ld.store.fused_fallbacks)
         check(counts == (1, 0),
-              f"{family}: fused dispatches, fallbacks {counts}")
+              f"{path}: fused dispatches, fallbacks {counts}")
         solo = [ld.call_model(m, "", p) for m, p in zip(mids, pls)]
         err = max(check_close(np.frombuffer(b, np.float32),
                               np.frombuffer(a, np.float32),
-                              MODEL_TOL[family], f"{family} fused group")
+                              MODEL_TOL[family], f"{path} fused group")
                   for a, b in zip(solo, fused))
         fused_ms = dispatch_ms(lambda: ld.call_model_batch(items))
         fused_profile = profile_share(lambda: ld.call_model_batch(items))
@@ -2747,8 +2804,10 @@ def batch_on_card(dev) -> dict:
         per_model_profile = profile_share(
             lambda: ld.call_model_batch(items))
         ld.store.fused_enabled = True
-        out[f"fused_{family}"] = {
-            "models": FUSED_GROUP, "spec": path,
+        for mid in mids:
+            ld.unload(mid)
+        out["fused"][path] = {
+            "models": FUSED_GROUP,
             "fused_dispatches": counts[0], "fused_fallbacks": counts[1],
             "max_err_vs_solo": err,
             "fused_ms_median": fused_ms,
@@ -2757,7 +2816,7 @@ def batch_on_card(dev) -> dict:
             "per_model_profile": per_model_profile,
         }
         check(ld.store.fused_fallbacks == 0,
-              f"{family}: fused dispatch fell back")
+              f"{path}: fused dispatch fell back")
     # MoE: a same-model batch of 2 requests and a batch across two MoE
     # models of one architecture run per request, never fused, and equal
     # solo calls bit for bit.
@@ -4498,6 +4557,667 @@ def phase_instance(dev, card: str) -> dict:
     return result
 
 
+SERVER_PREFIX = "mm"
+SERVER_PODS = 3
+# The Zipf traffic's models: SERVER_PER_SPEC of each spec of MODEL_SPECS
+# but the autoscaled class's family, registered over gRPC.
+SERVER_PER_SPEC = 4
+SERVER_REQUESTS = (240, 120)    # before and after the drain
+SERVER_VMODEL_REQUESTS = 12     # by vmodel id, before and after the rollover
+SERVER_CLIENTS = 4
+SERVER_ZIPF = 1.1
+SERVER_SEED = 1515
+# The class the phase burns by hand: its models (static, from
+# register_static_models on the first pod) take no client traffic, so no
+# request of the phase records into its SLO window; every other class has
+# a bound no request reaches.
+SERVER_BURN_CLASS = "linear"
+SERVER_SLO = "linear:p99<50ms;default:p99<600000ms"
+SERVER_STATIC = {"models": [
+    {"modelId": f"m-lin-{k}", "type": "linear", "path": "linear://"}
+    for k in range(2)]}
+SERVER_VMODEL = ("vm-mlp", ("m-v1", "m-v2"), ("mlp", "mlp://"))
+SERVER_SPLICER_MESSAGES = 200
+# A pod's accelerated task cadences (the reference's 40 s publisher, 6 min
+# janitor and 7 min reaper would not tick within the phase).
+SERVER_TASKS = dict(publish_interval_s=1.0, rate_interval_s=10.0,
+                    janitor_interval_s=2.0, reaper_interval_s=3.0,
+                    autoscale_mode="burn", autoscale_interval_s=0.5)
+SERVER_BUDGET_S = 150.0
+SERVER_WAIT_S = 60.0
+
+
+def server_ops():
+    """The serving pod's modules, imported where the phase needs them."""
+    import http.server
+    import types
+
+    import grpc
+
+    from modelmesh_tpu_torch.autoscale.controller import AutoscaleConfig
+    from modelmesh_tpu_torch.kv.memory import InMemoryKV
+    from modelmesh_tpu_torch.models import families as tf
+    from modelmesh_tpu_torch.models.server import (
+        PREDICT_METHOD, InProcessTorchLoader, TorchModelStore,
+        start_torch_runtime,
+    )
+    from modelmesh_tpu_torch.native import proto_splicer
+    from modelmesh_tpu_torch.observability.payloads import build_processor
+    from modelmesh_tpu_torch.placement import plan_sync
+    from modelmesh_tpu_torch.proto import mesh_api_pb2 as apb
+    from modelmesh_tpu_torch.runtime import grpc_defs
+    from modelmesh_tpu_torch.runtime.sidecar import SidecarRuntime
+    from modelmesh_tpu_torch.serving import tasks as tasks_mod
+    from modelmesh_tpu_torch.serving.api import (
+        MeshServer, PeerChannels, make_grpc_peer_call, make_grpc_peer_fetch,
+    )
+    from modelmesh_tpu_torch.serving.bootstrap import (
+        PreStopServer, register_static_models,
+    )
+    from modelmesh_tpu_torch.serving.constraints import UpgradeTracker
+    from modelmesh_tpu_torch.serving.dynamic import ServingConfigBinder
+    from modelmesh_tpu_torch.serving.entry import EntryState
+    from modelmesh_tpu_torch.serving.health import BootstrapProbation
+    from modelmesh_tpu_torch.serving.instance import (
+        InstanceConfig, ModelMeshInstance,
+    )
+    from modelmesh_tpu_torch.serving.tasks import BackgroundTasks, TaskConfig
+    from modelmesh_tpu_torch.serving.vmodels import VModelManager
+
+    return types.SimpleNamespace(**locals())
+
+
+class PayloadSink:
+    """The pods' payload processor's remote end: an HTTP server on
+    localhost keeping (kind, model, status) of every payload posted."""
+
+    def __init__(self, ops):
+        self.lock = threading.Lock()
+        self.got: list = []
+        sink = self
+
+        class Handler(ops.http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — stdlib API
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n))
+                with sink.lock:
+                    sink.got.append((body["kind"], body["modelid"],
+                                     body["status"]))
+                self.send_response(200)
+                self.end_headers()
+                self.wfile.write(b"ok")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ops.http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                          Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/p"
+        threading.Thread(target=self.server.serve_forever, daemon=True,
+                         name="payload-sink").start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class ServerPod:
+    """One pod as the reference launcher wires it (``serving/main.py``):
+    a port ModelMeshInstance with its loader on the card (in process, or
+    the sidecar runtime in front of ``start_torch_runtime``), a
+    TorchPlacementStrategy on the card, bootstrap probation and the
+    upgrade tracker, peers over gRPC through the shared channels, a
+    MeshServer with vmodels and the payload processor, background tasks
+    in burn mode, the dynamic config binder and the preStop server."""
+
+    def __init__(self, ops, kv, idx: int, capacity: int, dev, channels,
+                 sink_url: str, sidecar: bool):
+        self.iid = f"srv-{idx}"
+        self.alive = True
+        self.runtime_server = None
+        self.removals: list = []
+        if sidecar:
+            self.runtime_server, port, _ = ops.start_torch_runtime(
+                capacity_bytes=capacity, device=dev)
+            self.loader = ops.SidecarRuntime(f"127.0.0.1:{port}",
+                                             startup_timeout_s=60)
+        else:
+            self.loader = ops.InProcessTorchLoader(capacity_bytes=capacity,
+                                                   device=dev)
+        self.strategy = TorchPlacementStrategy(device=dev)
+        self.inst = ops.ModelMeshInstance(
+            kv, self.loader,
+            ops.InstanceConfig(instance_id=self.iid, kv_prefix=SERVER_PREFIX,
+                               load_timeout_s=120, min_churn_age_ms=0,
+                               batch_max=8, slo_spec=SERVER_SLO),
+            strategy=self.strategy,
+            peer_call=ops.make_grpc_peer_call(channels, timeout_s=60.0),
+            peer_fetch=ops.make_grpc_peer_fetch(channels, timeout_s=60.0),
+            upgrade_tracker=ops.UpgradeTracker(),
+            probation=ops.BootstrapProbation.from_env())
+        self._record_removals()
+        self.vmodels = ops.VModelManager(self.inst)
+        self.server = ops.MeshServer(
+            self.inst, port=0, vmodels=self.vmodels,
+            payload_processor=ops.build_processor([sink_url]))
+        self.inst.config.endpoint = self.server.endpoint
+        self.inst.publish_instance_record(force=True)
+        self.tasks = ops.BackgroundTasks(self.inst, ops.TaskConfig(
+            autoscale=ops.AutoscaleConfig(min_burn_samples=3, prewarm=False),
+            **SERVER_TASKS))
+        self.tasks.start()
+        self.binder = ops.ServingConfigBinder(kv, self.inst.config.kv_prefix,
+                                              self.inst, self.tasks.config)
+        self.prestop = ops.PreStopServer(self.inst, port=0,
+                                         max_wait_s=SERVER_WAIT_S)
+        self.channel = ops.grpc.insecure_channel(self.server.endpoint)
+
+    def _record_removals(self) -> None:
+        """(model, thread) of each local copy removed on purpose."""
+        remove = self.inst._remove_local
+
+        def logged(model_id, *args, **kwargs):
+            out = remove(model_id, *args, **kwargs)
+            if out:
+                self.removals.append((model_id,
+                                      threading.current_thread().name))
+            return out
+
+        self.inst._remove_local = logged
+
+    def holds(self, ops, mid: str) -> bool:
+        ce = self.inst.cache.get_quietly(mid)
+        return ce is not None and ce.state is ops.EntryState.ACTIVE
+
+    def http(self, path: str) -> tuple:
+        import urllib.error
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.prestop.port}{path}"
+        try:
+            r = urllib.request.urlopen(url, timeout=SERVER_WAIT_S + 30)
+            return r.status, r.read().decode().strip()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode().strip()
+
+    def close(self) -> None:
+        if not self.alive:
+            return
+        self.alive = False
+        self.tasks.stop()
+        self.binder.close()
+        self.channel.close()
+        self.server.stop(0)
+        self.vmodels.close()
+        self.prestop.close()
+        self.inst.shutdown()
+        if self.runtime_server is not None:
+            self.runtime_server.stop(0)
+
+
+def server_call(ops, pod, mid: str, payload: bytes, vmodel=False) -> dict:
+    """One Predict through ``pod``'s public gRPC surface, the model (or
+    vmodel) id in the header."""
+    header = (ops.grpc_defs.VMODEL_ID_HEADER if vmodel
+              else ops.grpc_defs.MODEL_ID_HEADER)
+    call = ops.grpc_defs.raw_method(pod.channel, ops.PREDICT_METHOD)
+    t = time.perf_counter()
+    try:
+        out, c = call.with_call(payload, metadata=[(header, mid)],
+                                timeout=SERVER_WAIT_S * 2)
+        served_by = dict(c.trailing_metadata()).get("mm-served-by")
+        err = None
+    except ops.grpc.RpcError as e:
+        out, served_by, err = None, None, f"{e.code().name}: {e.details()}"
+    return {"model": mid, "vmodel": vmodel, "entry": pod.iid,
+            "served_by": served_by, "payload": out, "error": err,
+            "ms": (time.perf_counter() - t) * 1e3}
+
+
+def server_traffic(ops, pods, models, payloads, n: int, seed: int) -> list:
+    """``n`` Zipf(SERVER_ZIPF) requests over ``models`` from
+    SERVER_CLIENTS threads, each entering at a uniformly drawn live
+    pod."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, len(models) + 1, dtype=np.float64)
+    p = ranks ** -SERVER_ZIPF
+    p /= p.sum()
+    perm = rng.permutation(len(models))
+    picks = perm[rng.choice(len(models), size=n, p=p)]
+    entries = rng.random(n)
+    live = [q for q in pods if q.alive]
+    out: list = [None] * n
+    nxt = iter(range(n))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                k = next(nxt, None)
+            if k is None:
+                return
+            mid, (_, path) = models[int(picks[k])]
+            pod = live[int(entries[k] * len(live))]
+            out[k] = server_call(ops, pod, mid, payloads[path])
+
+    threads = [threading.Thread(target=client, name=f"srv-client-{c}")
+               for c in range(SERVER_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return out
+
+
+def server_leader(pods):
+    live = [p for p in pods if p.alive]
+    wait_until(lambda: sum(p.inst.is_leader for p in live) == 1,
+               "one elected pod", SERVER_WAIT_S)
+    return next(p for p in live if p.inst.is_leader)
+
+
+def splicer_gate(ops) -> dict:
+    """The native splicer (built with g++ at first use) against its
+    Python path on seeded messages: every field path's location and
+    every splice, byte for byte."""
+    ps = ops.proto_splicer
+    t = time.perf_counter()
+    check(ps._ensure_native(), "server: the native splicer did not build")
+    build_ms = (time.perf_counter() - t) * 1e3
+    rng = np.random.default_rng(SERVER_SEED)
+    apb = ops.apb
+
+    def text(n):
+        return "".join(chr(int(c)) for c in rng.integers(97, 123, size=n))
+
+    compared = 0
+    for _ in range(SERVER_SPLICER_MESSAGES):
+        msg = apb.RegisterModelRequest(
+            model_id=text(int(rng.choice([0, 3, 127, 128, 300]))),
+            info=apb.ModelInfo(model_type=text(int(rng.integers(0, 200))),
+                               model_path=text(int(rng.integers(0, 20)))),
+            load_now=bool(rng.integers(0, 2)))
+        data = msg.SerializeToString()
+        for path in ((1,), (2, 1), (2, 2), (2, 3), (4,), (9,)):
+            native = ps._find_path(data, path)
+            check(native == ps._find_path_py(data, path),
+                  f"server: splicer paths differ at {path}")
+            if native is not None:
+                new = text(int(rng.integers(0, 200)))
+                got = ps.splice_id(data, path, new)
+                lib = ps._lib
+                ps._lib = False
+                try:
+                    want = ps.splice_id(data, path, new)
+                finally:
+                    ps._lib = lib
+                check(got == want, f"server: splices differ at {path}")
+            compared += 1
+    return {"backend": ps.backend, "build_ms": build_ms,
+            "messages": SERVER_SPLICER_MESSAGES, "paths": compared}
+
+
+def phase_server(dev, card: str) -> dict:
+    """The serving pods over gRPC on the card (module docstring, phase
+    15)."""
+    ops = server_ops()
+    t0 = time.perf_counter()
+    stages: dict = {}
+    last = [t0]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stages[name] = now - last[0]
+        last[0] = now
+        emit({"phase": "server_stage", "stage": name, "s": stages[name]})
+
+    specs = [s for s in MODEL_SPECS if s[0] != SERVER_BURN_CLASS]
+    models = [(f"m-{k}-{j}", spec) for k, spec in enumerate(specs)
+              for j in range(SERVER_PER_SPEC)]
+    vm_id, vm_targets, vm_spec = SERVER_VMODEL
+    specs_by_id = dict(models)
+    specs_by_id.update({m["modelId"]: (m["type"], m["path"])
+                        for m in SERVER_STATIC["models"]})
+    specs_by_id.update({t: vm_spec for t in vm_targets})
+    payloads, built = {}, 0
+    for k, (mtype, path) in enumerate(MODEL_SPECS):
+        model = ops.tf.build_model("payload", mtype, path, device=dev)
+        payloads[path] = model_input(model, 1, SERVER_SEED + k).tobytes()
+        built += model.size_bytes * (SERVER_PER_SPEC + 2)
+    # Every pod could hold the whole registry: the phase measures the
+    # surfaces, not eviction (phase instance's).
+    capacity = built
+    result = {"phase": "server", "card": card, "pods": SERVER_PODS,
+              "models": len(models), "clients": SERVER_CLIENTS,
+              "zipf": SERVER_ZIPF, "pod_capacity_bytes": capacity,
+              "tasks": SERVER_TASKS}
+    ref = ops.TorchModelStore(1 << 36, device=dev)
+    kv = ops.InMemoryKV()
+    channels = ops.PeerChannels()
+    sink = PayloadSink(ops)
+    pods: list = []
+    ticks: list = []
+    real_step = ops.tasks_mod.reaper_plan_step
+
+    def recorded_step(store, kv_prefix, strategy, registry, view,
+                      rpm_fn=None):
+        """The leader's reaper step as BackgroundTasks calls it, with the
+        launches it made and every live pod's adoption of its bytes."""
+        before = all_launches()
+        step = real_step(store, kv_prefix, strategy, registry, view, rpm_fn)
+        after = all_launches()
+        rec = {"pod": next((p.iid for p in pods if p.strategy is strategy),
+                           None),
+               "published": step.plan is not None,
+               "error": repr(step.error) if step.error else None,
+               "records": len(step.records), "views": len(step.views),
+               "scan_ms": step.scan_ms, "refresh_ms": step.refresh_ms,
+               "publish_ms": step.publish_ms, "nbytes": step.nbytes,
+               "launches": {k: after[k] - before.get(k, 0) for k in after
+                            if after[k] != before.get(k, 0)}}
+        if step.plan is not None:
+            gen = step.plan.generation
+            rec["generation"] = gen
+            rec["solver_path"] = step.plan.stats.get("solver_path")
+            published = store.get(ops.plan_sync.plan_key(kv_prefix)).value
+            live = [p for p in pods if p.alive]
+            t = time.perf_counter()
+            try:
+                wait_until(lambda: all(p.strategy.plan is not None
+                                       and p.strategy.plan.generation >= gen
+                                       for p in live), "adoption", 10.0)
+                rec["adopted"] = all(
+                    p.strategy.plan.generation != gen
+                    or p.strategy.plan.to_bytes() == published
+                    for p in live)
+                rec["adopt_ms"] = (time.perf_counter() - t) * 1e3
+            except RuntimeError:
+                rec["adopted"] = False
+        ticks.append(rec)
+        return step
+
+    ops.tasks_mod.reaper_plan_step = recorded_step
+    try:
+        for k in range(SERVER_PODS):
+            pods.append(ServerPod(ops, kv, k, capacity, dev, channels,
+                                  sink.url, sidecar=k == SERVER_PODS - 1))
+        for p in pods:
+            p.inst.instances_view.wait_for(lambda v: len(v) >= SERVER_PODS,
+                                           timeout=SERVER_WAIT_S)
+        # The static models: the first pod's register_static_models, as
+        # the launcher calls it (the other pods' knob is unset: none).
+        static = ops.register_static_models(
+            pods[0].inst, pods[0].vmodels,
+            config_json=json.dumps(SERVER_STATIC))
+        check(static == [m["modelId"] for m in SERVER_STATIC["models"]],
+              f"server: static registration gave {static}")
+        for p in pods[1:]:
+            check(ops.register_static_models(p.inst, p.vmodels) == [],
+                  "server: a pod without static models registered some")
+        api = [ops.grpc_defs.make_stub(p.channel, ops.grpc_defs.API_SERVICE,
+                                       ops.grpc_defs.API_METHODS)
+               for p in pods]
+        for k, (mid, (mtype, path)) in enumerate(models):
+            st = api[k % len(api)].RegisterModel(ops.apb.RegisterModelRequest(
+                model_id=mid, info=ops.apb.ModelInfo(model_type=mtype,
+                                                     model_path=path)),
+                timeout=SERVER_WAIT_S)
+            check(st.model_id == mid, f"server: RegisterModel {mid}: {st}")
+        n_registered = len(models) + len(static)
+        for p in pods:
+            wait_until(lambda p=p: len(p.inst.registry_view) >= n_registered,
+                       f"{p.iid}'s view of the registry", SERVER_WAIT_S)
+        result["setup_s"] = time.perf_counter() - t0
+        stage("setup")
+        reset_all_launches()
+        ticks.clear()
+        # Status and EnsureLoaded over gRPC.
+        statuses = {}
+        for k, m in enumerate(SERVER_STATIC["models"]):
+            st = api[(k + 1) % len(api)].EnsureLoaded(
+                ops.apb.EnsureLoadedRequest(model_id=m["modelId"], sync=True),
+                timeout=SERVER_WAIT_S * 2)
+            check(st.status == ops.apb.LOADED,
+                  f"server: EnsureLoaded {m['modelId']}: {st}")
+        for mid, _ in models[:3] + [("m-none", None)]:
+            st = api[1].GetModelStatus(
+                ops.apb.GetModelStatusRequest(model_id=mid),
+                timeout=SERVER_WAIT_S)
+            statuses[mid] = (ops.apb.ModelStatus.Name(st.status),
+                             st.copy_count)
+        check(statuses["m-none"][0] == "NOT_FOUND",
+              f"server: status of an unregistered model: {statuses}")
+        result["statuses"] = statuses
+        stage("api")
+        rows = server_traffic(ops, pods, models, payloads,
+                              SERVER_REQUESTS[0], SERVER_SEED + 1)
+        stage("traffic_first")
+        # A vmodel and its rollover: the alias answers from its target.
+        vm_rows, vm_active = [], []
+        for target in vm_targets:
+            st = api[0].SetVModel(ops.apb.SetVModelRequest(
+                vmodel_id=vm_id, target_model_id=target,
+                info=ops.apb.ModelInfo(model_type=vm_spec[0],
+                                       model_path=vm_spec[1]),
+                auto_delete_target=True, load_now=True, sync=True),
+                timeout=SERVER_WAIT_S * 2)
+            got = api[1].GetVModelStatus(ops.apb.GetVModelStatusRequest(
+                vmodel_id=vm_id), timeout=SERVER_WAIT_S)
+            vm_active.append((st.active_model_id, got.active_model_id,
+                              ops.apb.VModelStatusInfo.TransitionStatus.Name(
+                                  got.transition)))
+            check(got.active_model_id == target,
+                  f"server: {vm_id} active {got.active_model_id}, "
+                  f"not {target}")
+            for k in range(SERVER_VMODEL_REQUESTS):
+                row = server_call(ops, pods[k % len(pods)], vm_id,
+                                  payloads[vm_spec[1]], vmodel=True)
+                row["target"] = target
+                vm_rows.append(row)
+        result["vmodel"] = {"id": vm_id, "active": vm_active}
+        stage("vmodels")
+        # The autoscaler: a burn injected into the leader's SLO window on
+        # one class; its controller adds a copy of the class's models.
+        leader = server_leader(pods)
+        burn_models = [m["modelId"] for m in SERVER_STATIC["models"]]
+        copies0 = {mid: leader.inst.registry.get(mid).copy_count
+                   for mid in burn_models}
+        for _ in range(6):
+            leader.inst.slo.record(SERVER_BURN_CLASS, 5_000.0, True)
+        asc = leader.tasks.autoscaler
+
+        def scaled():
+            ups = [d for d in list(asc.decisions)
+                   if d["kind"] == "autoscale-up"]
+            return ups and any(
+                leader.inst.registry.get(d["model"]).copy_count
+                > copies0[d["model"]] for d in ups)
+
+        t = time.perf_counter()
+        wait_until(scaled, "an autoscale-up that added a copy",
+                   SERVER_WAIT_S)
+        ups = [d for d in list(asc.decisions) if d["kind"] == "autoscale-up"]
+        result["autoscale"] = {
+            "leader": leader.iid, "ms": (time.perf_counter() - t) * 1e3,
+            "ups": ups, "copies_before": copies0,
+            "copies_after": {mid: leader.inst.registry.get(mid).copy_count
+                             for mid in burn_models}}
+        check(all(d["slo_class"] == SERVER_BURN_CLASS for d in ups),
+              f"server: autoscale-up outside the burnt class: {ups}")
+        stage("autoscale")
+        # UnregisterModel at a pod that does not hold the model; its holder
+        # drops the copy (the deletion watch). Then the same with the
+        # holder's watch listener detached, as if it missed the event: its
+        # janitor drops the copy.
+        def single_copy(exclude=()):
+            for mid, _ in models:
+                mr = leader.inst.registry.get(mid)
+                if (mr is not None and len(mr.instance_ids) == 1
+                        and mid not in exclude):
+                    holder = next(p for p in pods
+                                  if p.iid in mr.instance_ids)
+                    if holder.holds(ops, mid):
+                        return mid, holder
+            raise RuntimeError("chip_smoke: server: no model with one copy")
+
+        unreg = {}
+        for how in ("watch", "janitor"):
+            mid, holder = single_copy(exclude=[u["model"]
+                                               for u in unreg.values()])
+            other = next(p for p in pods if p is not holder)
+            listeners = holder.inst.registry_view._listeners
+            listener = holder.inst._on_registry_event
+            if how == "janitor":
+                listeners.remove(listener)
+            try:
+                t = time.perf_counter()
+                api[pods.index(other)].UnregisterModel(
+                    ops.apb.UnregisterModelRequest(model_id=mid),
+                    timeout=SERVER_WAIT_S)
+                wait_until(lambda: any(m == mid for m, _ in holder.removals),
+                           f"{holder.iid} dropping {mid}", SERVER_WAIT_S)
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                if how == "janitor":
+                    listeners.append(listener)
+            by = [th for m, th in holder.removals if m == mid]
+            unreg[how] = {"model": mid, "holder": holder.iid,
+                          "at": other.iid, "ms": ms, "removed_by": by}
+            if how == "janitor":
+                check(by and by[-1].startswith("task-janitor-"),
+                      f"server: {mid}'s copy was not dropped by the "
+                      f"janitor ({by})")
+        models = [m for m in models
+                  if m[0] not in {u["model"] for u in unreg.values()}]
+        result["unregister"] = unreg
+        stage("unregister")
+        # One pod drains through its preStop hook; /ready flips.
+        leader = server_leader(pods)
+        drained = next(p for p in reversed(pods) if p is not leader)
+        held = [mid for mid, _ in models if drained.holds(ops, mid)]
+        t = time.perf_counter()
+        hook = drained.http("/prestop")
+        drain_ms = (time.perf_counter() - t) * 1e3
+        ready = drained.http("/ready")
+        check(hook == (200, "migrated"), f"server: /prestop gave {hook}")
+        check(ready[0] == 503, f"server: /ready after the drain: {ready}")
+        drained.close()
+        result["drain"] = {"pod": drained.iid, "ms": drain_ms,
+                           "held": held, "ready_after": ready}
+        stage("drain")
+        rows += server_traffic(ops, pods, models, payloads,
+                               SERVER_REQUESTS[1], SERVER_SEED + 2)
+        survivors = [p for p in pods if p.alive]
+        moved = [server_call(ops, survivors[k % len(survivors)], mid,
+                             payloads[specs_by_id[mid][1]])
+                 for k, mid in enumerate(held)]
+        for r in moved:
+            check(r["error"] is None and r["served_by"] != drained.iid,
+                  f"server: {r['model']} after the drain: {r}")
+        rows += moved
+        stage("traffic_after_drain")
+        result["splicer"] = splicer_gate(ops)
+        stage("splicer")
+        # Quiescence: no load in flight; every record's holders are the
+        # live pods whose cache holds the model.
+        live = [p for p in pods if p.alive]
+
+        def mismatches():
+            bad = []
+            for mid, mr in live[0].inst.registry.items():
+                holders = {p.iid for p in live if p.holds(ops, mid)}
+                if set(mr.instance_ids) != holders or mr.loading_instances:
+                    bad.append((mid, sorted(mr.instance_ids),
+                                sorted(holders)))
+            return bad
+
+        try:
+            wait_until(lambda: not mismatches(), "the registry settling",
+                       SERVER_WAIT_S)
+        except RuntimeError:
+            check(False, f"server: registry and caches disagree: "
+                  f"{mismatches()[:5]}")
+        result["quiesce"] = {"records": sum(
+            1 for _ in live[0].inst.registry.items())}
+        stage("quiesce")
+        # The answers: each the reference store's predict of its model.
+        errors = [r for r in rows + vm_rows if r["error"]]
+        check(not errors, f"server: {len(errors)} requests failed, first "
+              f"{errors[:3]}")
+        wants, worst = {}, {}
+        for r in rows + vm_rows:
+            mid = r.get("target", r["model"])
+            mtype, path = specs_by_id[mid]
+            if mid not in wants:
+                ref.load(mid, mtype, path)
+                wants[mid] = np.frombuffer(
+                    ref.predict_batch([(mid, payloads[path])])[0],
+                    np.float32)
+                ref.unload(mid)
+            err = check_close(np.frombuffer(r["payload"], np.float32),
+                              wants[mid], MODEL_TOL[mtype],
+                              f"server: {mid} via {r['entry']}")
+            worst[path] = max(worst.get(path, 0.0), err)
+        stage("answers")
+        # The reaper's ticks: at least two of the leader's published a
+        # plan, every one adopted by every live pod, byte for byte.
+        try:
+            wait_until(lambda: sum(r["published"] for r in ticks) >= 2,
+                       "two published reaper ticks", SERVER_WAIT_S)
+        except RuntimeError:
+            pass
+        launches = {k: v for k, v in all_launches().items() if v}
+        published = [r for r in ticks if r["published"]]
+        check(len(published) >= 2,
+              f"server: {len(published)} reaper ticks published a plan")
+        check(all(r["adopted"] for r in published),
+              f"server: a published plan not adopted: "
+              f"{[r for r in published if not r['adopted']][:2]}")
+        for name in ("lse_sinkhorn_step", "row_lse_partial", "implied_load"):
+            check(launches.get(name, 0) > 0,
+                  f"server: the leader's ticks never launched {name} "
+                  f"({launches})")
+        # The payload sink: a request and a response for every call.
+        calls = rows + vm_rows
+        with sink.lock:
+            got = list(sink.got)
+        kinds = {k: sum(1 for g in got if g[0] == k)
+                 for k in ("request", "response")}
+        check(kinds["request"] == len(calls)
+              and kinds["response"] == len(calls),
+              f"server: the payload sink got {kinds} for {len(calls)} "
+              f"calls")
+        ms = [r["ms"] for r in rows]
+        result.update({
+            "requests": len(rows), "vmodel_requests": len(vm_rows),
+            "latency_ms": {"median": float(np.median(ms)),
+                           "p99": float(np.percentile(ms, 99)),
+                           "max": float(np.max(ms))},
+            "served_by": {p.iid: sum(r["served_by"] == p.iid for r in rows)
+                          for p in pods},
+            "max_err_by_spec": worst,
+            "payloads": kinds,
+            "reaper_ticks": len(ticks), "published_ticks": len(published),
+            "ticks": published[:4],
+            "task_ticks": {p.iid: {n: len(v) for n, v in
+                                   p.tasks.tick_times.items()}
+                           for p in pods},
+        })
+    finally:
+        ops.tasks_mod.reaper_plan_step = real_step
+        for p in pods:
+            p.close()
+        channels.close()
+        sink.close()
+        kv.close()
+    result.update(launches_in_run=launches, stages_s=stages,
+                  seconds=time.perf_counter() - t0)
+    emit(result)
+    check(result["seconds"] < SERVER_BUDGET_S,
+          f"server took {result['seconds']:.1f} s, over {SERVER_BUDGET_S} s")
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -4548,6 +5268,7 @@ def main() -> int:
     phase_runtime_mesh(dev, card)
     plan_loop = phase_plan_loop(dev, card)
     instance = phase_instance(dev, card)
+    server = phase_server(dev, card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -4603,6 +5324,8 @@ def main() -> int:
         entry["plan_loop_launches"] = plan_loop["launches_in_run"].get(
             entry["name"], 0)
         entry["instance_launches"] = instance["launches_in_run"].get(
+            entry["name"], 0)
+        entry["server_launches"] = server["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

@@ -11,3 +11,17 @@ and the in-process and gRPC model server (``models/server.py``).
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"`` (see ``device.py``).
 """
+
+import os
+
+# cuBLAS without a workspace, so that it takes no kernel that splits a
+# product's K sum over blocks (those need one). With a workspace, it splits for some shapes and not for others, so
+# a row's f32 sums depend on the batch or fused group the row rides in;
+# the transformer's bf16 rounding of the attention softmax then turns a
+# last-bit difference into one of up to 1.5e-4 of max|logits| between a
+# batched or fused predict and a solo one (tools/batch_parity.py). With no
+# workspace the blocks before the readout give each row bitwise its solo
+# values, and the logits differ in their last bits only. PyTorch
+# reads the variable once, at the process's first cuBLAS call, so it is
+# set on import; a value the caller set is kept.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":0:0")

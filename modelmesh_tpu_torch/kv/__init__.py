@@ -1,9 +1,10 @@
-"""Coordination substrate: versioned KV, tables, sessions, leader election.
+"""The port's own copy of the JAX package's ``kv/__init__.py``
+(the port imports nothing of that package); names and behaviour
+are the reference's.
 
-The port's own copy of the JAX package's ``kv/`` exports, without
-``DynamicConfig`` (``kv/config.py`` is not ported yet).
-"""
+Coordination substrate: versioned KV, tables, sessions, leader election."""
 
+from modelmesh_tpu_torch.kv.config import DynamicConfig
 from modelmesh_tpu_torch.kv.memory import InMemoryKV
 from modelmesh_tpu_torch.kv.session import LeaderElection, SessionNode
 from modelmesh_tpu_torch.kv.store import (
@@ -23,6 +24,7 @@ from modelmesh_tpu_torch.kv.table import (
 )
 
 __all__ = [
+    "DynamicConfig",
     "InMemoryKV",
     "LeaderElection",
     "SessionNode",

@@ -1,6 +1,9 @@
-"""Observability: metrics facade, clock-aware tracing, SLO attainment and
-the flight recorder; the port's copy of the JAX package's
-``observability/`` (the payload processors come with the API slice)."""
+"""The port's own copy of the JAX package's ``observability/__init__.py``
+(the port imports nothing of that package); names and behaviour
+are the reference's.
+
+Observability: metrics facade, payload processors, clock-aware
+tracing, SLO attainment, and the flight recorder (docs/observability.md)."""
 
 from modelmesh_tpu_torch.observability.flightrec import (
     FLIGHTREC_DUMP_ID,
@@ -24,6 +27,16 @@ from modelmesh_tpu_torch.observability.metrics import (
     PrometheusMetrics,
     StatsDMetrics,
 )
+from modelmesh_tpu_torch.observability.payloads import (
+    AsyncPayloadProcessor,
+    CompositePayloadProcessor,
+    LoggingPayloadProcessor,
+    MatchingPayloadProcessor,
+    Payload,
+    PayloadProcessor,
+    RemotePayloadProcessor,
+    build_processor,
+)
 
 __all__ = [
     "FLIGHTREC_DUMP_ID",
@@ -40,4 +53,12 @@ __all__ = [
     "NoopMetrics",
     "PrometheusMetrics",
     "StatsDMetrics",
+    "AsyncPayloadProcessor",
+    "CompositePayloadProcessor",
+    "LoggingPayloadProcessor",
+    "MatchingPayloadProcessor",
+    "Payload",
+    "PayloadProcessor",
+    "RemotePayloadProcessor",
+    "build_processor",
 ]

@@ -1,11 +1,14 @@
-"""gRPC definitions of the model-runtime service, built from a method map.
+"""The port's own copy of the JAX package's ``runtime/grpc_defs.py``
+(the port imports nothing of that package); names and behaviour
+are the reference's.
 
-The port's copy of the runtime half of the JAX package's
-``runtime/grpc_defs.py``: the ``ModelRuntime`` service's method map, the
-stub and servicer factories, and the raw-bytes identity marshallers that
-carry inference payloads for any method name (the reference's fallback
-registry, ModelMeshApi.java:1099-1160). Names, paths and wire formats are
-the reference's, so either side of a connection may be either package.
+gRPC service definitions built from method maps (no codegen plugin).
+
+Provides stub/servicer factories for the three services (runtime SPI,
+external management API, internal forwarding) plus the raw-bytes
+identity marshallers used for arbitrary-method inference passthrough —
+the equivalent of the reference's zero-copy ByteBuf method descriptors
+(GrpcSupport.java:425-463, ModelMeshApi.java:649-819).
 """
 
 from __future__ import annotations
@@ -14,11 +17,17 @@ from typing import Callable, Mapping, Type
 
 import grpc
 
-from modelmesh_tpu_torch.proto import mesh_runtime_pb2
+from modelmesh_tpu_torch.proto import (
+    mesh_api_pb2,
+    mesh_internal_pb2,
+    mesh_runtime_pb2,
+    mesh_transfer_pb2,
+)
 
-# Metadata key carrying the model id on inference calls
+# Metadata keys carrying the model/vmodel id on inference calls
 # (reference: GrpcSupport.java:110-126).
 MODEL_ID_HEADER = "mm-model-id"
+VMODEL_ID_HEADER = "mm-vmodel-id"
 
 _MethodMap = Mapping[str, tuple[Type, Type]]
 
@@ -34,6 +43,35 @@ RUNTIME_METHODS: _MethodMap = {
         mesh_runtime_pb2.ModelSizeRequest, mesh_runtime_pb2.ModelSizeResponse),
     "RuntimeStatus": (
         mesh_runtime_pb2.RuntimeStatusRequest, mesh_runtime_pb2.RuntimeStatusResponse),
+}
+
+API_SERVICE = "mmtpu.api.ModelMesh"
+API_METHODS: _MethodMap = {
+    "RegisterModel": (
+        mesh_api_pb2.RegisterModelRequest, mesh_api_pb2.ModelStatusInfo),
+    "UnregisterModel": (
+        mesh_api_pb2.UnregisterModelRequest, mesh_api_pb2.UnregisterModelResponse),
+    "GetModelStatus": (
+        mesh_api_pb2.GetModelStatusRequest, mesh_api_pb2.ModelStatusInfo),
+    "EnsureLoaded": (
+        mesh_api_pb2.EnsureLoadedRequest, mesh_api_pb2.ModelStatusInfo),
+    "SetVModel": (
+        mesh_api_pb2.SetVModelRequest, mesh_api_pb2.VModelStatusInfo),
+    "DeleteVModel": (
+        mesh_api_pb2.DeleteVModelRequest, mesh_api_pb2.DeleteVModelResponse),
+    "GetVModelStatus": (
+        mesh_api_pb2.GetVModelStatusRequest, mesh_api_pb2.VModelStatusInfo),
+}
+
+INTERNAL_SERVICE = "mmtpu.internal.MeshInternal"
+INTERNAL_METHODS: _MethodMap = {
+    "Forward": (
+        mesh_internal_pb2.ForwardRequest, mesh_internal_pb2.ForwardResponse),
+    # Weight-transfer fetch (live scale-up): chunk-indexed peer pull of a
+    # model's weight snapshot, served beside Forward on the internal port.
+    "FetchWeights": (
+        mesh_transfer_pb2.FetchWeightsRequest,
+        mesh_transfer_pb2.FetchWeightsResponse),
 }
 
 
@@ -89,7 +127,12 @@ def raw_method(channel: grpc.Channel, full_method: str):
 
 class RawFallbackHandler(grpc.GenericRpcHandler):
     """Server-side catch-all: any unregistered unary method is delivered to
-    ``handler(method_name, request_bytes, context) -> response_bytes``."""
+    ``handler(method_name, request_bytes, context) -> response_bytes``.
+
+    This is how arbitrary inference RPCs enter the mesh without registering
+    per-method descriptors (reference fallback Registry,
+    ModelMeshApi.java:1099-1160).
+    """
 
     def __init__(self, handler: Callable[[str, bytes, grpc.ServicerContext], bytes]):
         self._handler = handler
@@ -103,6 +146,42 @@ class RawFallbackHandler(grpc.GenericRpcHandler):
         return grpc.unary_unary_rpc_method_handler(
             unary, request_deserializer=_identity, response_serializer=_identity
         )
+
+
+def call_cancellable(callable_, request, timeout=None, metadata=None,
+                     cancel_event=None, with_trailers=False):
+    """Invoke a unary-unary multicallable, aborting early when
+    ``cancel_event`` fires (client disconnect): the in-flight RPC is
+    cancelled so the remote side's context deactivates too, and the local
+    concurrency slot frees immediately instead of riding out the call.
+
+    ``with_trailers=True`` returns ``(response, trailing_metadata)`` so
+    callers can read piggybacked response trailers (the Forward path's
+    mm-load feedback) without a second RPC surface."""
+    if cancel_event is None:
+        if with_trailers:
+            resp, call = callable_.with_call(
+                request, timeout=timeout, metadata=metadata
+            )
+            return resp, call.trailing_metadata() or ()
+        return callable_(request, timeout=timeout, metadata=metadata)
+    import threading
+
+    from modelmesh_tpu_torch.serving.errors import RequestCancelledError
+
+    fut = callable_.future(request, timeout=timeout, metadata=metadata)
+    done = threading.Event()
+    fut.add_done_callback(lambda _f: done.set())
+    while not done.wait(0.05):  #: wall-clock: polls a REAL in-flight gRPC future at cancel-check cadence
+        if cancel_event.is_set():
+            fut.cancel()
+            raise RequestCancelledError("client disconnected")
+    result = fut.result()
+    if with_trailers:
+        # The rendezvous future is also the Call: trailers are available
+        # once the result is.
+        return result, fut.trailing_metadata() or ()
+    return result
 
 
 def bind_server(server, port: int = 0, bind_host: str = "127.0.0.1",

@@ -3,11 +3,11 @@
 The port's own copy of the reference registry's accessors, holding only
 the knobs the port reads: the placement solve's, the model runtime's, the
 cluster layer's (the KV tables, plan distribution, greedy fallback, route
-cache and the lock/race/clock debug aids) and the serving instance's.
-One knob is registered ahead of its reader: ``MM_LOG_REQUEST_HEADERS``,
-read by ``observability/logctx.py``, which is not ported yet. ``get``
-raises ``KeyError`` for an unregistered name, so a typo'd knob fails at
-the call site instead of silently reading the default.
+cache and the lock/race/clock debug aids), the serving instance's and the
+serving pod's (static registration, bootstrap probation, request-header
+log context and the autoscale controller). ``get`` raises ``KeyError``
+for an unregistered name, so a typo'd knob fails at the call site instead
+of silently reading the default.
 """
 
 from __future__ import annotations
@@ -231,8 +231,7 @@ REGISTRY: dict[str, EnvVar] = {
                "each completion", "serving/instance.py"),
         EnvVar("MM_LOG_REQUEST_HEADERS", "list", "",
                "headers copied into the per-request log context "
-               "(header or header=field); registered ahead of its "
-               "reader, not yet ported", "observability/logctx.py"),
+               "(header or header=field)", "observability/logctx.py"),
         EnvVar("MM_PEER_FETCH", "bool", "1",
                "peer-to-peer weight streaming on scale-up: a new copy "
                "streams chunked weights from an already-loaded live peer "
@@ -282,6 +281,48 @@ REGISTRY: dict[str, EnvVar] = {
                "mm-trace-id headers always record, so a sampled request "
                "is traced end-to-end across every hop",
                "serving/instance.py"),
+        # The serving pod's surfaces (serving/bootstrap.py,
+        # serving/health.py) and the autoscale controller (serving/
+        # tasks.py, autoscale/controller.py): the reference's types,
+        # defaults and help.
+        EnvVar("MM_STATIC_MODELS", "json", "",
+               "models/vmodels registered at startup",
+               "serving/bootstrap.py"),
+        EnvVar("MM_PROBATION_S", "float", "360",
+               "bootstrap fail-fast window seconds (0 disables)",
+               "serving/health.py"),
+        EnvVar("MM_PROBATION_FAILURES", "int", "3",
+               "early load failures that abort bootstrap",
+               "serving/health.py"),
+        EnvVar("MM_AUTOSCALE", "str", "legacy",
+               "the ONE copy-scaling authority: legacy (default — the "
+               "10s rate-task scale-up + janitor cluster-full "
+               "scale-down, behaviorally identical to before the "
+               "autoscale/ subsystem), burn (the SLO-burn-rate "
+               "controller: pre-breach copy adds over the fast weight "
+               "paths, demote-to-host scale-down, predictive host-tier "
+               "pre-warming; the legacy scalers are suppressed), or "
+               "off (no scaling at all)", "serving/tasks.py"),
+        EnvVar("MM_AUTOSCALE_BURN_UP", "float", "0.5",
+               "class burn rate at/above which the controller scales "
+               "its models up (1.0 = burning exactly at error budget; "
+               "below 1 means the controller acts BEFORE breach)",
+               "autoscale/controller.py"),
+        EnvVar("MM_AUTOSCALE_BURN_DOWN", "float", "0.25",
+               "class burn rate below which a class counts as calm; "
+               "surplus copies demote to the host tier only after "
+               "idle_ticks_down consecutive calm ticks",
+               "autoscale/controller.py"),
+        EnvVar("MM_AUTOSCALE_HOLDDOWN_MS", "int", "5000",
+               "per-model hold after an autoscale copy add: no further "
+               "add until the previous one landed (copy count moved) "
+               "or this window expired", "autoscale/controller.py"),
+        EnvVar("MM_AUTOSCALE_PREWARM", "bool", "1",
+               "predictive pre-warming in burn mode: the leader "
+               "publishes a forecast-driven pre-warm plan and targets "
+               "stage host-tier snapshots streamed from live holders "
+               "so demand ramps re-warm in ~ms instead of paying cold "
+               "store loads", "autoscale/controller.py"),
     ]
 }
 

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch/CUDA port: every module of
 ``modelmesh_tpu_torch`` and ``chip_smoke`` import without loading ``jax``
-or anything of the JAX package, and without building or loading a kernel.
+or anything of the JAX package, and without building or loading a kernel
+or the native splicer.
 Checked in a fresh interpreter, since this test process imports both."""
 
 import json
@@ -8,6 +9,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -21,6 +24,7 @@ names = ["modelmesh_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from modelmesh_tpu_torch.native import proto_splicer
 from modelmesh_tpu_torch.ops import _build
 leaked = sorted(
     m for m in sys.modules
@@ -28,7 +32,9 @@ leaked = sorted(
     or m.startswith("modelmesh_tpu.")
 )
 print(json.dumps({"modules": names, "leaked": leaked,
-                  "libs": sorted(_build._libs)}))
+                  "libs": sorted(_build._libs),
+                  "splicer": [proto_splicer._lib is None,
+                              proto_splicer.backend]}))
 """
 
 
@@ -38,6 +44,20 @@ INSTANCE_MODULES = [
     "observability.flightrec", "observability.slo", "serving.admission",
     "serving.entry", "serving.batching", "transfer", "transfer.protocol",
     "transfer.manager", "kv.migrate", "serving.instance", "reconfig.drain",
+]
+
+# The serving pod's surfaces: the rest of the runtime, protocol and
+# observability modules, the pod's lifecycle, the background tasks with
+# the autoscaler, vmodels and the gRPC API.
+SERVER_MODULES = [
+    "runtime", "runtime.grpc_defs", "runtime.fake", "runtime.sidecar",
+    "proto", "proto.mesh_api_pb2", "proto.mesh_internal_pb2",
+    "proto.mesh_transfer_pb2", "kv", "kv.config", "observability.logctx",
+    "observability.payloads", "serving.dataplane", "native",
+    "native.proto_splicer", "serving.tls", "serving.health",
+    "serving.bootstrap", "serving.dynamic", "autoscale",
+    "autoscale.forecast", "autoscale.controller", "serving.tasks",
+    "serving.vmodels", "serving.api",
 ]
 
 
@@ -58,8 +78,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # imports, beside the rest.
     assert {f"modelmesh_tpu_torch.{m}" for m in INSTANCE_MODULES} <= set(
         got["modules"])
+    # The serving pod's slice.
+    assert {f"modelmesh_tpu_torch.{m}" for m in SERVER_MODULES} <= set(
+        got["modules"])
     assert got["leaked"] == []
     assert got["libs"] == []
+    # Importing the splicer builds nothing: it is built at first use.
+    assert got["splicer"] == [True, "python"]
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -107,3 +132,23 @@ def test_mesh_modules_import_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"jax": [], "threads": 1}
+
+
+@pytest.mark.parametrize("preset", [None, ":4096:8"])
+def test_import_sets_cublas_workspace_default(preset):
+    """Importing the port turns cuBLAS's workspace off (no split-K, so a
+    row's products do not depend on its batch), unless the caller chose
+    a workspace."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["PYTHONPATH"] = str(REPO)
+    if preset is not None:
+        env["CUBLAS_WORKSPACE_CONFIG"] = preset
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import os, modelmesh_tpu_torch; "
+         "print(os.environ['CUBLAS_WORKSPACE_CONFIG'])"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == (preset or ":0:0")

@@ -324,6 +324,9 @@ def _demote_rewarm(pkg, insts, loaders):
                a.host_tier.size_of("warm"))
     a.cache.set_capacity(1 << 14)
     a.ensure_loaded("warm", sync=True)
+    # The registry view follows the store's watch, as for the host claim.
+    _wait(lambda: "t-0" in a.registry.get("warm").instance_ids,
+          "the promotion")
     mr = a.registry.get("warm")
     return (demoted, _counts(loaders), sorted(mr.instance_ids),
             sorted(mr.host_instances))
