@@ -326,6 +326,45 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              its Python path on 200 seeded messages (the runtime's
              payload is raw tensor bytes, with no id field for the
              in-body path); under 150 s. One server_stage line per stage.
+16. cluster — launcher pods as separate processes on the card: the
+             port's mesh:// KV server (kv/service.py, 64 workers) in this
+             process, and three children, each ``cluster_pod`` (the
+             launcher's main(argv) with --runtime torch --strategy torch
+             and no --device, so the card is the default; its
+             BackgroundTasks at the accelerated cadences CLUSTER_TASKS:
+             publisher 1 s, janitor 2 s, reaper 3 s), started at once.
+             SERVER_STATIC's two linear models come from the first pod's
+             MM_STATIC_MODELS, 3 of each MODEL_SPECS spec over gRPC
+             RegisterModel; 300 Zipf(1.1) Predicts from 4 threads over
+             the pods' endpoints; a non-leader (by its ***STATE*** dump)
+             drains on SIGTERM while 120 more Predicts go to the
+             survivors, then each of its models once at a survivor; the
+             survivors stop on SIGTERM. Each child prints, after main
+             returns, its launch counters, devices, peak device memory,
+             its reaper steps (launches, the published plan's generation
+             and digest) and the plans its strategy held. Then two pods
+             each over the port's etcd v3 wire server and its ZooKeeper
+             wire server, side by side: 3 models, 30 Predicts, SIGTERM.
+             Gates: every pod ready (spawn to READY timed), every pod's
+             loader and strategy on cuda with device memory allocated,
+             the card's used memory up by 256 MiB a pod with the pods
+             up (nvidia-smi's process list is recorded; in a container with
+             its own PID namespace it does not name the pods); every
+             answer within MODEL_TOL of a direct TorchModelStore predict
+             here; two plan generations published (read from the KV) and
+             at least two ticks each adopted, byte for byte, by all three
+             pods; every published tick launched lse_sinkhorn_step,
+             row_lse_partial and implied_load; the drained pod exits 0
+             and no request fails; at quiescence the registry read over
+             RemoteKV equals the live pods' caches; every pod exits 0;
+             under 150 s. One cluster_stage line per stage.
+17. import_order — the cuBLAS rule (modelmesh_tpu_torch/__init__.py) in
+             two fresh processes without CUBLAS_WORKSPACE_CONFIG: one runs
+             a cuBLAS product, imports the port and must be refused a
+             CUDA TorchModelStore (RuntimeError naming the fix); one sets
+             :0:0 first, runs a product, then tools/batch_parity.py (8
+             payloads a spec): every batched and fused answer within
+             1.2e-6 of max|solo|.
 
 Then the card line from nvidia-smi, one JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -4809,6 +4848,29 @@ def server_traffic(ops, pods, models, payloads, n: int, seed: int) -> list:
     return out
 
 
+def check_answers(ref, rows, specs_by_id, payloads, what: str) -> dict:
+    """Every row (``server_call``'s) answered, each within MODEL_TOL of
+    ``ref``'s predict of its model (a vmodel row's target); the worst
+    error by spec."""
+    errors = [r for r in rows if r["error"]]
+    check(not errors, f"{what}: {len(errors)} requests failed, first "
+          f"{errors[:3]}")
+    wants, worst = {}, {}
+    for r in rows:
+        mid = r.get("target", r["model"])
+        mtype, path = specs_by_id[mid]
+        if mid not in wants:
+            ref.load(mid, mtype, path)
+            wants[mid] = np.frombuffer(
+                ref.predict_batch([(mid, payloads[path])])[0], np.float32)
+            ref.unload(mid)
+        err = check_close(np.frombuffer(r["payload"], np.float32),
+                          wants[mid], MODEL_TOL[mtype],
+                          f"{what}: {mid} via {r['entry']}")
+        worst[path] = max(worst.get(path, 0.0), err)
+    return worst
+
+
 def server_leader(pods):
     live = [p for p in pods if p.alive]
     wait_until(lambda: sum(p.inst.is_leader for p in live) == 1,
@@ -5141,23 +5203,8 @@ def phase_server(dev, card: str) -> dict:
             1 for _ in live[0].inst.registry.items())}
         stage("quiesce")
         # The answers: each the reference store's predict of its model.
-        errors = [r for r in rows + vm_rows if r["error"]]
-        check(not errors, f"server: {len(errors)} requests failed, first "
-              f"{errors[:3]}")
-        wants, worst = {}, {}
-        for r in rows + vm_rows:
-            mid = r.get("target", r["model"])
-            mtype, path = specs_by_id[mid]
-            if mid not in wants:
-                ref.load(mid, mtype, path)
-                wants[mid] = np.frombuffer(
-                    ref.predict_batch([(mid, payloads[path])])[0],
-                    np.float32)
-                ref.unload(mid)
-            err = check_close(np.frombuffer(r["payload"], np.float32),
-                              wants[mid], MODEL_TOL[mtype],
-                              f"server: {mid} via {r['entry']}")
-            worst[path] = max(worst.get(path, 0.0), err)
+        worst = check_answers(ref, rows + vm_rows, specs_by_id, payloads,
+                              "server")
         stage("answers")
         # The reaper's ticks: at least two of the leader's published a
         # plan, every one adopted by every live pod, byte for byte.
@@ -5218,6 +5265,642 @@ def phase_server(dev, card: str) -> dict:
     return result
 
 
+# -- phase cluster: launcher pods as separate processes ------------------------
+
+CLUSTER_PREFIX = "mm"   # the launcher's kv prefix (InstanceConfig default)
+CLUSTER_PODS = 3
+# The registry: CLUSTER_PER_SPEC models of each MODEL_SPECS spec over
+# gRPC, and SERVER_STATIC's models through the first pod's
+# MM_STATIC_MODELS (the launcher's register_static_models).
+CLUSTER_PER_SPEC = 3
+CLUSTER_REQUESTS = 300          # Zipf(SERVER_ZIPF) from SERVER_CLIENTS threads
+CLUSTER_DRAIN_REQUESTS = 120    # at the survivors while one pod drains
+CLUSTER_SEED = 1616
+# The short passes on the other two coordination protocols.
+CLUSTER_SCHEMES = ("etcd", "zookeeper")
+CLUSTER_SCHEME_PODS = 2
+CLUSTER_SCHEME_MODELS = 3
+CLUSTER_SCHEME_REQUESTS = 30
+# A pod's accelerated cadences (the launcher's BackgroundTasks defaults are
+# the reference's 40 s publisher, 6 min janitor and 7 min reaper).
+CLUSTER_TASKS = dict(publish_interval_s=1.0, janitor_interval_s=2.0,
+                     reaper_interval_s=3.0)
+CLUSTER_BUDGET_S = 150.0
+CLUSTER_START_S = 120.0         # spawn to READY, per pod
+CLUSTER_WAIT_S = 60.0
+# The KV servers' gRPC worker threads: each watch stream holds one for its
+# life, and a launcher pod keeps several open (the servers' default of 16
+# leaves a third pod's unary calls queued past their deadline).
+CLUSTER_KV_WORKERS = 64
+# The card's used memory must rise by at least this much a pod while the
+# pods hold their copies (a CUDA context alone takes more).
+CLUSTER_POD_MIN_MIB = 256
+# How long after a reaper tick a live pod may take to adopt its plan (a
+# pod stopped sooner is not held to it).
+CLUSTER_ADOPT_S = 2.0
+CLUSTER_POD_CODE = ("import sys, chip_smoke as cs; "
+                    "sys.exit(cs.cluster_pod(sys.argv[1:]))")
+# Launcher arguments every pod gets beyond the phase's own. Empty on the
+# card: the pods take the launcher's default device, cuda:0. A rehearsal
+# on the host sets ("--device", "cpu").
+CLUSTER_POD_ARGS: tuple = ()
+
+
+def _digest(data: bytes) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def cluster_pod(argv) -> int:
+    """One pod of phase cluster, in a child process: the launcher's
+    ``main(argv)`` (``modelmesh_tpu_torch/serving/main.py``) with the
+    phase's task cadences (CLUSTER_TASKS), recording each reaper step its
+    BackgroundTasks take (launches, the published plan's generation and
+    digest) and each plan its strategy holds. After ``main`` returns on
+    SIGTERM it prints one JSON line: the pod's launch counters, its
+    devices and peak device memory, its ticks and plans. Run as
+    ``python3 -c "$CLUSTER_POD_CODE" <launcher arguments>``. A fatal
+    signal dumps every thread's stack to stderr."""
+    import faulthandler
+
+    from modelmesh_tpu_torch.models import server as model_server
+    from modelmesh_tpu_torch.placement import plan_sync, torch_engine
+    from modelmesh_tpu_torch.serving import main as launcher
+    from modelmesh_tpu_torch.serving import tasks as tasks_mod
+
+    stores, strategies, ticks, plans = [], [], [], []
+
+    def captured(cls, into):
+        real = cls.__init__
+
+        def init(self, *args, **kwargs):
+            real(self, *args, **kwargs)
+            into.append(self)
+        cls.__init__ = init
+
+    captured(model_server.TorchModelStore, stores)
+    captured(torch_engine.TorchPlacementStrategy, strategies)
+    real_tasks = tasks_mod.BackgroundTasks.__init__
+
+    def tasks_init(self, instance, config=None):
+        real_tasks(self, instance,
+                   config or tasks_mod.TaskConfig(**CLUSTER_TASKS))
+    tasks_mod.BackgroundTasks.__init__ = tasks_init
+    real_step = tasks_mod.reaper_plan_step
+
+    def recorded_step(store, kv_prefix, strategy, registry, view,
+                      rpm_fn=None):
+        before = all_launches()
+        step = real_step(store, kv_prefix, strategy, registry, view, rpm_fn)
+        after = all_launches()
+        rec = {"t": time.time(), "published": step.plan is not None,
+               "error": repr(step.error) if step.error else None,
+               "records": len(step.records), "views": len(step.views),
+               "scan_ms": step.scan_ms, "refresh_ms": step.refresh_ms,
+               "publish_ms": step.publish_ms, "nbytes": step.nbytes,
+               "launches": {k: after[k] - before.get(k, 0) for k in after
+                            if after[k] != before.get(k, 0)}}
+        if step.plan is not None:
+            rec["generation"] = step.plan.generation
+            rec["solver_path"] = step.plan.stats.get("solver_path")
+            rec["digest"] = _digest(
+                store.get(plan_sync.plan_key(kv_prefix)).value)
+        ticks.append(rec)
+        return step
+    tasks_mod.reaper_plan_step = recorded_step
+    faulthandler.enable()
+    done = threading.Event()
+
+    def watch_plans():
+        last = None
+        while not done.wait(0.02):
+            plan = strategies[0].plan if strategies else None
+            if plan is not None and plan.generation != last:
+                last = plan.generation
+                plans.append((time.time(), last, _digest(plan.to_bytes())))
+    threading.Thread(target=watch_plans, daemon=True,
+                     name="cluster-plans").start()
+    try:
+        launcher.main(argv)
+    finally:
+        done.set()
+    devices = [s.device for s in stores] + [s.device for s in strategies]
+    cuda_dev = next((d for d in devices if d.type == "cuda"), None)
+    emit({"pod": argv[argv.index("--instance-id") + 1], "pid": os.getpid(),
+          "loader_devices": [str(s.device) for s in stores],
+          "strategy_devices": [str(s.device) for s in strategies],
+          "max_memory_allocated": (torch.cuda.max_memory_allocated(cuda_dev)
+                                   if cuda_dev is not None else 0),
+          "launches": all_launches(), "ticks": ticks, "plans": plans})
+    return 0
+
+
+class ClusterPod:
+    """A launcher pod in a child process (``cluster_pod``): its stdout
+    read on a thread (the READY line, then its JSON line), its stderr in a
+    log file. ``channel``, ``iid`` and ``alive`` serve server_call and
+    server_traffic."""
+
+    def __init__(self, ops, kv_uri: str, iid: str, capacity_mb: int,
+                 logdir: str, env: dict):
+        self.ops, self.iid, self.alive = ops, iid, True
+        self.endpoint, self.channel, self.lines = None, None, []
+        self.log_path = os.path.join(logdir, f"{iid}.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", CLUSTER_POD_CODE, "--kv", kv_uri,
+                 "--instance-id", iid, "--runtime", "torch",
+                 "--strategy", "torch", "--capacity-mb", str(capacity_mb),
+                 "--load-timeout-s", "120", *CLUSTER_POD_ARGS],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=log, text=True, env=env)
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name=f"pod-out-{iid}")
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            line = line.strip()
+            if line.startswith("READY ") and self.endpoint is None:
+                self.ready_s = time.perf_counter() - self.t0
+                self.endpoint = line.split(" ", 1)[1]
+                self._ready.set()
+            elif line:
+                self.lines.append(line)
+        self._ready.set()
+
+    def log_tail(self, n: int = 2000) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def wait_ready(self, timeout: float) -> None:
+        self._ready.wait(timeout)
+        check(self.endpoint is not None,
+              f"cluster: pod {self.iid} not ready (rc {self.proc.poll()}): "
+              f"{self.log_tail()}")
+        self.channel = self.ops.grpc.insecure_channel(self.endpoint)
+        self.api = self.ops.grpc_defs.make_stub(
+            self.channel, self.ops.grpc_defs.API_SERVICE,
+            self.ops.grpc_defs.API_METHODS)
+
+    def state(self) -> dict:
+        """The pod's ***STATE*** dump over gRPC."""
+        st = self.api.GetModelStatus(self.ops.apb.GetModelStatusRequest(
+            model_id="***STATE***"), timeout=CLUSTER_WAIT_S)
+        return json.loads(st.errors[0])
+
+    def terminate(self, timeout: float = CLUSTER_WAIT_S) -> int:
+        """SIGTERM (the launcher migrates its copies, then stops); the
+        exit code."""
+        import signal
+
+        self.alive = False
+        self.stopped_at = time.time()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout)
+        self._reader.join(10)
+        if self.channel is not None:
+            self.channel.close()
+        if rc != 0:
+            emit({"phase": "cluster_pod_exit", "pod": self.iid, "rc": rc,
+                  "stderr_tail": self.log_tail(6000)})
+        return rc
+
+    def result(self) -> dict:
+        rows = [json.loads(x) for x in self.lines if x.startswith("{")]
+        check(rows, f"cluster: pod {self.iid} printed no result: "
+              f"{self.log_tail()}")
+        return rows[-1]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def gpu_usage() -> dict:
+    """The card's used memory (MiB) and its compute processes as
+    nvidia-smi lists them (pid, used memory). In a container with its
+    own PID namespace the list does not name the container's pids."""
+    def query(*args):
+        return subprocess.run(
+            ["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.strip().splitlines()
+
+    return {"memory_used_mib": float(query("--query-gpu=memory.used")[0]),
+            "compute_apps": query("--query-compute-apps=pid,used_memory")}
+
+
+def cluster_registry_matches(ops, kv, pods) -> list:
+    """(model, holders in the registry read over ``kv``, holders by the
+    live pods' caches) of every model where the two differ or a load is
+    in flight."""
+    from modelmesh_tpu_torch.kv.table import BucketedKVTable
+    from modelmesh_tpu_torch.records import ModelRecord
+
+    table = BucketedKVTable(kv, f"{CLUSTER_PREFIX}/registry", ModelRecord)
+    live = [p for p in pods if p.alive]
+    cached = {}
+    for p in live:
+        for e in p.state()["cache"]["entries"]:
+            if e["state"] == ops.EntryState.ACTIVE.value:
+                cached.setdefault(e["modelId"], set()).add(p.iid)
+    bad = []
+    for mid, mr in table.items():
+        holders = set(mr.instance_ids)
+        if holders != cached.get(mid, set()) or mr.loading_instances:
+            bad.append((mid, sorted(holders),
+                        sorted(cached.get(mid, set()))))
+    return bad
+
+
+def cluster_adoption(results: dict, stopped: dict) -> dict:
+    """Each published reaper tick (any pod's) against every pod's plans:
+    a pod still alive CLUSTER_ADOPT_S past the tick held a plan of at
+    least its generation, and the tick's own generation with its digest.
+    Returns the ticks, each with the pods it was checked on and their
+    adoption delays (s)."""
+    ticks = [dict(t, pod=pod) for pod, r in results.items()
+             for t in r["ticks"] if t["published"]]
+    ticks.sort(key=lambda t: t["t"])
+    for t in ticks:
+        t["adopted_by"] = {}
+        for pod, r in results.items():
+            if stopped[pod] < t["t"] + CLUSTER_ADOPT_S:
+                continue
+            later = [p for p in r["plans"] if p[1] >= t["generation"]]
+            check(later, f"cluster: {pod} never adopted generation "
+                  f"{t['generation']} (its plans {r['plans'][-3:]})")
+            for _, gen, digest in later:
+                check(gen != t["generation"] or digest == t["digest"],
+                      f"cluster: {pod} holds generation {gen} with other "
+                      f"bytes than {t['pod']} published")
+            t["adopted_by"][pod] = later[0][0] - t["t"]
+    return ticks
+
+
+def cluster_scheme_pass(ops, scheme: str, capacity_mb: int, logdir, env,
+                        payloads) -> dict:
+    """Two pods on ``scheme``'s in-repo server (the port's etcd v3 wire
+    server, or its ZooKeeper wire server), CLUSTER_SCHEME_MODELS models,
+    CLUSTER_SCHEME_REQUESTS Predicts, then SIGTERM to both. Returns the
+    pods' exit codes and results and the requests' rows."""
+    from modelmesh_tpu_torch.kv.memory import InMemoryKV
+
+    if scheme == "etcd":
+        from modelmesh_tpu_torch.kv.etcd_server import start_etcd_server
+
+        backing = InMemoryKV()
+        server, port, _ = start_etcd_server(
+            store=backing, max_workers=CLUSTER_KV_WORKERS)
+
+        def stop():
+            server.stop(0)
+            backing.close()
+    else:
+        from modelmesh_tpu_torch.kv.zk_server import ZkWireServer
+
+        zk = ZkWireServer().start()
+        port, stop = zk.port, zk.stop
+    pods = []
+    try:
+        pods = [ClusterPod(ops, f"{scheme}://127.0.0.1:{port}",
+                           f"{scheme}-{k}", capacity_mb, logdir, env)
+                for k in range(CLUSTER_SCHEME_PODS)]
+        for p in pods:
+            p.wait_ready(CLUSTER_START_S)
+        models = [(f"{scheme}-m-{k}", MODEL_SPECS[k])
+                  for k in range(CLUSTER_SCHEME_MODELS)]
+        for k, (mid, (mtype, path)) in enumerate(models):
+            pods[k % len(pods)].api.RegisterModel(
+                ops.apb.RegisterModelRequest(
+                    model_id=mid, info=ops.apb.ModelInfo(
+                        model_type=mtype, model_path=path)),
+                timeout=CLUSTER_WAIT_S)
+        rows = [server_call(ops, pods[k % len(pods)],
+                            models[k % len(models)][0],
+                            payloads[models[k % len(models)][1][1]])
+                for k in range(CLUSTER_SCHEME_REQUESTS)]
+        rcs = {p.iid: p.terminate() for p in pods}
+        results = {p.iid: p.result() for p in pods}
+    finally:
+        for p in pods:
+            p.kill()
+        stop()
+    return {"models": dict(models), "rcs": rcs, "results": results,
+            "rows": rows,
+            "ready_s": {p.iid: p.ready_s for p in pods}}
+
+
+def phase_cluster(dev, card: str) -> dict:
+    """Launcher pods as separate processes on the card (module
+    docstring, phase 16)."""
+    import shutil
+    import tempfile
+
+    from modelmesh_tpu_torch.kv.service import RemoteKV, start_kv_server
+    from modelmesh_tpu_torch.placement import plan_sync
+    from modelmesh_tpu_torch.placement.torch_engine import GlobalPlan
+
+    ops = server_ops()
+    t0 = time.perf_counter()
+    stages: dict = {}
+    last = [t0]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stages[name] = now - last[0]
+        last[0] = now
+        emit({"phase": "cluster_stage", "stage": name, "s": stages[name]})
+
+    models = [(f"c-{k}-{j}", spec) for k, spec in enumerate(MODEL_SPECS)
+              for j in range(CLUSTER_PER_SPEC)]
+    specs_by_id = dict(models)
+    specs_by_id.update({m["modelId"]: (m["type"], m["path"])
+                        for m in SERVER_STATIC["models"]})
+    payloads, built = {}, 0
+    for k, (mtype, path) in enumerate(MODEL_SPECS):
+        model = ops.tf.build_model("payload", mtype, path, device=dev)
+        payloads[path] = model_input(model, 1, CLUSTER_SEED + k).tobytes()
+        built += model.size_bytes * (CLUSTER_PER_SPEC + 2)
+    # Every pod could hold the whole registry: the phase measures the
+    # processes and the wire, not eviction.
+    capacity_mb = -(-built // (1 << 20)) + 64
+    result = {"phase": "cluster", "card": card, "pods": CLUSTER_PODS,
+              "models": len(models) + len(SERVER_STATIC["models"]),
+              "clients": SERVER_CLIENTS, "zipf": SERVER_ZIPF,
+              "pod_capacity_mb": capacity_mb, "tasks": CLUSTER_TASKS}
+    ref = ops.TorchModelStore(1 << 36, device=dev)
+    env = dict(os.environ, MM_LOG_LEVEL="WARNING")
+    logdir = tempfile.mkdtemp(prefix="mm-cluster-")
+    backing = ops.InMemoryKV()
+    kv_server, kv_port, _ = start_kv_server(
+        store=backing, max_workers=CLUSTER_KV_WORKERS)
+    kv = RemoteKV(f"127.0.0.1:{kv_port}")
+    pods: list = []
+    rows: list = []
+    usage_before = gpu_usage()
+    try:
+        pods = [ClusterPod(
+            ops, f"mesh://127.0.0.1:{kv_port}", f"pod-{k}", capacity_mb,
+            logdir, dict(env, MM_STATIC_MODELS=json.dumps(SERVER_STATIC))
+            if k == 0 else env) for k in range(CLUSTER_PODS)]
+        for p in pods:
+            p.wait_ready(CLUSTER_START_S)
+        result["start_s"] = {p.iid: p.ready_s for p in pods}
+        wait_until(lambda: all(len(p.state()["cluster"]) == CLUSTER_PODS
+                               for p in pods),
+                   "every pod seeing the others", CLUSTER_WAIT_S)
+        stage("start")
+        for k, (mid, (mtype, path)) in enumerate(models):
+            st = pods[k % len(pods)].api.RegisterModel(
+                ops.apb.RegisterModelRequest(
+                    model_id=mid, info=ops.apb.ModelInfo(
+                        model_type=mtype, model_path=path)),
+                timeout=CLUSTER_WAIT_S)
+            check(st.model_id == mid, f"cluster: RegisterModel {mid}: {st}")
+        n_models = result["models"]
+        wait_until(lambda: all(len(p.state()["registry"]) >= n_models
+                               for p in pods),
+                   "every pod's view of the registry", CLUSTER_WAIT_S)
+        stage("register")
+        rows += server_traffic(ops, pods, models, payloads,
+                               CLUSTER_REQUESTS, CLUSTER_SEED + 1)
+        stage("traffic")
+        # The pods on the card, while they hold their copies: the card's
+        # used memory rose by their share (each pod's own report of its
+        # device and peak memory is held at the end).
+        usage = gpu_usage()
+        result["gpu_usage"] = {"before": usage_before, "pods_up": usage,
+                               "pids": {p.iid: p.proc.pid for p in pods}}
+        rise = usage["memory_used_mib"] - usage_before["memory_used_mib"]
+        check(rise >= CLUSTER_POD_MIN_MIB * CLUSTER_PODS,
+              f"cluster: the card's used memory rose {rise} MiB with "
+              f"{CLUSTER_PODS} pods up ({usage_before} -> {usage})")
+        # At least two reaper ticks published, read from the KV.
+        def plan_generation():
+            kvp = kv.get(plan_sync.plan_key(CLUSTER_PREFIX))
+            return (GlobalPlan.from_bytes(kvp.value).generation
+                    if kvp is not None else 0)
+
+        gen0 = plan_generation()
+        wait_until(lambda: plan_generation() >= gen0 + 2,
+                   "two reaper ticks publishing a plan", CLUSTER_WAIT_S)
+        # Every pod stays up long enough to be held to their adoption
+        # (the ticks' stamps come a KV read after their publish).
+        time.sleep(CLUSTER_ADOPT_S + 0.5)
+        stage("ticks")
+        # A non-leader drains on SIGTERM while clients keep sending to the
+        # survivors; then each of its models once at a survivor.
+        leaders = [p for p in pods if p.state()["isLeader"]]
+        check(len(leaders) == 1, f"cluster: leaders {leaders}")
+        drained = next(p for p in reversed(pods) if p is not leaders[0])
+        held = [e["modelId"] for e in drained.state()["cache"]["entries"]
+                if e["state"] == ops.EntryState.ACTIVE.value]
+        survivors = [p for p in pods if p is not drained]
+        during: list = []
+        sender = threading.Thread(target=lambda: during.extend(
+            server_traffic(ops, survivors, models, payloads,
+                           CLUSTER_DRAIN_REQUESTS, CLUSTER_SEED + 2)),
+            name="cluster-drain-traffic")
+        t = time.perf_counter()
+        sender.start()
+        drain_rc = drained.terminate()
+        drain_s = time.perf_counter() - t
+        sender.join()
+        check(drain_rc == 0, f"cluster: the drained pod exited {drain_rc}: "
+              f"{drained.log_tail()}")
+        moved = [server_call(ops, survivors[k % len(survivors)], mid,
+                             payloads[specs_by_id[mid][1]])
+                 for k, mid in enumerate(held)]
+        for r in moved:
+            check(r["error"] is None and r["served_by"] != drained.iid,
+                  f"cluster: {r['model']} after the drain: {r}")
+        rows += during + moved
+        result["drain"] = {"pod": drained.iid, "leader": leaders[0].iid,
+                           "s": drain_s, "held": held,
+                           "requests_during": len(during)}
+        stage("drain")
+        try:
+            wait_until(lambda: not cluster_registry_matches(ops, kv, pods),
+                       "the registry settling", CLUSTER_WAIT_S)
+        except RuntimeError:
+            check(False, f"cluster: registry and caches disagree: "
+                  f"{cluster_registry_matches(ops, kv, pods)[:5]}")
+        stage("quiesce")
+        rcs = {p.iid: p.terminate() for p in survivors}
+        rcs[drained.iid] = drain_rc
+        check(all(rc == 0 for rc in rcs.values()),
+              f"cluster: pods exited {rcs}")
+        results = {p.iid: p.result() for p in pods}
+        stopped = {p.iid: p.stopped_at for p in pods}
+        stage("stop")
+    finally:
+        for p in pods:
+            p.kill()
+        kv.close()
+        kv_server.stop(0)
+        backing.close()
+    worst = check_answers(ref, rows, specs_by_id, payloads, "cluster")
+    for pod, r in results.items():
+        check(r["loader_devices"] and all(
+            d.startswith("cuda") for d in r["loader_devices"]
+            + r["strategy_devices"]) and r["max_memory_allocated"] > 0,
+            f"cluster: {pod} ran on {r['loader_devices']} / "
+            f"{r['strategy_devices']}, peak {r['max_memory_allocated']} B")
+    published = cluster_adoption(results, stopped)
+    everywhere = [t for t in published
+                  if len(t["adopted_by"]) == CLUSTER_PODS]
+    check(len(everywhere) >= 2,
+          f"cluster: {len(everywhere)} published reaper ticks adopted by "
+          f"all {CLUSTER_PODS} pods ({len(published)} published)")
+    delays = [d for t in published for d in t["adopted_by"].values()]
+    for t in published:
+        for name in ("lse_sinkhorn_step", "row_lse_partial", "implied_load"):
+            check(t["launches"].get(name, 0) > 0,
+                  f"cluster: a tick of {t['pod']} never launched {name} "
+                  f"({t['launches']})")
+    stage("answers")
+    # The other protocols' passes side by side, each on its own thread.
+    passes: dict = {}
+    threads = [threading.Thread(
+        target=lambda s=s: passes.__setitem__(s, cluster_scheme_pass(
+            ops, s, capacity_mb, logdir, env, payloads)),
+        name=f"cluster-{s}") for s in CLUSTER_SCHEMES]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(sorted(passes) == sorted(CLUSTER_SCHEMES),
+          f"cluster: the passes {sorted(passes)} of {CLUSTER_SCHEMES} ended")
+    shutil.rmtree(logdir, ignore_errors=True)   # kept when a pod failed
+    schemes = {}
+    for s, r in passes.items():
+        check(all(rc == 0 for rc in r["rcs"].values()),
+              f"cluster: {s} pods exited {r['rcs']}")
+        for pod, res in r["results"].items():
+            check(res["loader_devices"] and all(
+                d.startswith("cuda") for d in res["loader_devices"])
+                and res["max_memory_allocated"] > 0,
+                f"cluster: {pod} ran on {res['loader_devices']}, peak "
+                f"{res['max_memory_allocated']} B")
+        specs_by_id.update(r["models"])
+        schemes[s] = {
+            "start_s": r["ready_s"], "exit_codes": r["rcs"],
+            "requests": len(r["rows"]),
+            "max_err_by_spec": check_answers(
+                ref, r["rows"], specs_by_id, payloads, f"cluster {s}"),
+            "served_by": {pod: sum(x["served_by"] == pod for x in r["rows"])
+                          for pod in r["rcs"]}}
+    stage("schemes")
+    launches: dict = {}
+    for r in list(results.values()) + [
+            x for s in passes.values() for x in s["results"].values()]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    ms = [r["ms"] for r in rows]
+    result.update({
+        "requests": len(rows),
+        "latency_ms": {"median": float(np.median(ms)),
+                       "p99": float(np.percentile(ms, 99)),
+                       "max": float(np.max(ms))},
+        "served_by": {p.iid: sum(r["served_by"] == p.iid for r in rows)
+                      for p in pods},
+        "max_err_by_spec": worst,
+        "exit_codes": rcs,
+        "max_memory_allocated": {p: r["max_memory_allocated"]
+                                 for p, r in results.items()},
+        "published_ticks": len(published),
+        "ticks_adopted_everywhere": len(everywhere),
+        "ticks": [{k: t[k] for k in ("pod", "generation", "records",
+                                     "views", "refresh_ms", "scan_ms",
+                                     "publish_ms", "nbytes", "launches",
+                                     "solver_path", "adopted_by")}
+                  for t in published[:4]],
+        "adopt_delay_ms": {"max": max(delays) * 1e3,
+                           "median": float(np.median(delays)) * 1e3},
+        "schemes": schemes,
+        "launches_in_run": {k: v for k, v in launches.items() if v},
+        "stages_s": stages, "seconds": time.perf_counter() - t0,
+    })
+    emit(result)
+    check(result["seconds"] < CLUSTER_BUDGET_S,
+          f"cluster took {result['seconds']:.1f} s, over "
+          f"{CLUSTER_BUDGET_S} s")
+    return result
+
+
+# The import-order check: a process that reached cuBLAS before importing
+# the port must be refused a CUDA model store, and one that set the
+# variable first must keep batch parity.
+IMPORT_ORDER_LATE = """
+import torch
+a = torch.randn(256, 256, device="cuda")
+(a @ a).sum().item()
+import modelmesh_tpu_torch
+from modelmesh_tpu_torch.models.server import TorchModelStore
+try:
+    TorchModelStore(1 << 20, device="cuda")
+except RuntimeError as e:
+    print("REFUSED", e)
+else:
+    print("ACCEPTED")
+"""
+IMPORT_ORDER_EARLY = """
+import sys
+import torch
+a = torch.randn(256, 256, device="cuda")
+(a @ a).sum().item()
+sys.path.insert(0, "tools")
+import batch_parity
+sys.exit(batch_parity.main(["batch_parity", "--payloads", "8"]))
+"""
+BATCH_PARITY_TOL = 1.2e-6
+
+
+def phase_import_order(card: str) -> dict:
+    """The cuBLAS import-order rule on the card, in two fresh processes
+    (module docstring, phase 17)."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    late = subprocess.run([sys.executable, "-c", IMPORT_ORDER_LATE],
+                          cwd=root, env=env, capture_output=True,
+                          text=True, timeout=300)
+    check(late.returncode == 0 and "REFUSED" in late.stdout
+          and "CUBLAS_WORKSPACE_CONFIG" in late.stdout,
+          f"import_order: a late import was not refused: {late.stdout} "
+          f"{late.stderr[-2000:]}")
+    early = subprocess.run(
+        [sys.executable, "-c", IMPORT_ORDER_EARLY], cwd=root,
+        env=dict(env, CUBLAS_WORKSPACE_CONFIG=":0:0"),
+        capture_output=True, text=True, timeout=600)
+    check(early.returncode == 0,
+          f"import_order: batch parity failed: {early.stderr[-2000:]}")
+    parity = json.loads(early.stdout.strip().splitlines()[-1])
+    worst = 0.0
+    for path, res in parity["specs"].items():
+        for kind in ("pad", "mix", "fused"):
+            for v in res[kind].values():
+                worst = max(worst, v["max"])
+    result = {"phase": "import_order", "card": card,
+              "late": late.stdout.strip(),
+              "early_workspace": parity["cublas_workspace_config"],
+              "early_worst_rel_err": worst,
+              "specs": sorted(parity["specs"]),
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    check(worst <= BATCH_PARITY_TOL,
+          f"import_order: batched/fused answers {worst:.3g} of max|ref| "
+          f"from solo, over {BATCH_PARITY_TOL}")
+    return result
+
+
 def kernel_entries(table: dict, lib: str, launches: dict,
                    cells: dict) -> list:
     """The contract's kernel objects; ``launches`` by kernel, each from
@@ -5269,6 +5952,8 @@ def main() -> int:
     plan_loop = phase_plan_loop(dev, card)
     instance = phase_instance(dev, card)
     server = phase_server(dev, card)
+    cluster = phase_cluster(dev, card)
+    phase_import_order(card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
     # the main paths' 1024 columns take the fused steps).
@@ -5326,6 +6011,8 @@ def main() -> int:
         entry["instance_launches"] = instance["launches_in_run"].get(
             entry["name"], 0)
         entry["server_launches"] = server["launches_in_run"].get(
+            entry["name"], 0)
+        entry["cluster_launches"] = cluster["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

@@ -13,6 +13,7 @@ Entry points run on the first CUDA device unless the caller passes
 """
 
 import os
+import sys
 
 # cuBLAS without a workspace, so that it takes no kernel that splits a
 # product's K sum over blocks (those need one). With a workspace, it splits for some shapes and not for others, so
@@ -24,4 +25,15 @@ import os
 # values, and the logits differ in their last bits only. PyTorch
 # reads the variable once, at the process's first cuBLAS call, so it is
 # set on import; a value the caller set is kept.
+#
+# A process that reached CUDA before importing the port may already have
+# made its first cuBLAS call, and then the setting comes too late and
+# nothing says so. The state at import is recorded here (without
+# importing torch only to ask), and ``device.check_cublas_import_order``
+# refuses a CUDA model store in such a process unless the variable was
+# ":0:0" from the start.
+CUDA_UP_AT_IMPORT = "torch" in sys.modules and bool(
+    sys.modules["torch"].cuda.is_initialized()
+)
+CUBLAS_SET_AT_IMPORT = os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":0:0"
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":0:0")

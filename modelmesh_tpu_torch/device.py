@@ -54,6 +54,27 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device(device)
 
 
+def check_cublas_import_order(device) -> None:
+    """Refuse a CUDA ``device`` in a process whose CUDA was up before the
+    port was imported while ``CUBLAS_WORKSPACE_CONFIG`` was not ":0:0":
+    PyTorch reads the variable at the first cuBLAS call, which may have
+    come before the port set it, and cuBLAS's split-K then makes batched
+    and fused answers differ from solo ones past the batch-parity gate
+    (see ``modelmesh_tpu_torch/__init__.py``)."""
+    import modelmesh_tpu_torch as pkg
+
+    if torch.device(device).type != "cuda":
+        return
+    if pkg.CUDA_UP_AT_IMPORT and not pkg.CUBLAS_SET_AT_IMPORT:
+        raise RuntimeError(
+            "CUDA was initialized before modelmesh_tpu_torch was imported, "
+            "so its CUBLAS_WORKSPACE_CONFIG=:0:0 may have come after the "
+            "process's first cuBLAS call (split-K breaks batch parity); "
+            "import modelmesh_tpu_torch first, or set "
+            "CUBLAS_WORKSPACE_CONFIG=:0:0 before the first CUDA call"
+        )
+
+
 def resolve_kernel_impl(knob: str, value: str, device) -> str:
     """Validate a kernel-backend knob (``sparse_impl``, ``lse_impl``) and
     name the backend that runs: "cuda" for CUDA tensors, "plain" (the

@@ -36,9 +36,7 @@ When a scan pass finds zero flat keys the migrator advertises DONE and
 readers drop the dual-read fallback. The flat->bucketed direction is
 what exists today; the mechanism is layout-agnostic.
 
-The reference's command line (``main``) needs the launcher's
-``build_store`` and comes with the launcher's slice; until then call
-``migrate_flat_registry`` / ``migrate_flat_registry_live`` on a store.
+    python -m modelmesh_tpu_torch.kv.migrate --kv etcd://host:2379 --prefix mm [--live]
 """
 
 from __future__ import annotations
@@ -216,3 +214,37 @@ def migrate_flat_registry_live(
     advertise_phase(store, prefix, PHASE_DONE)
     return total
 
+
+def main() -> None:
+    import argparse
+
+    from modelmesh_tpu_torch.serving.main import build_store
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--kv", required=True,
+                        help="mesh://host:port, etcd://host:port, or "
+                             "zookeeper://host:port")
+    parser.add_argument("--prefix", default="mm")
+    parser.add_argument("--buckets", type=int, default=128)
+    parser.add_argument("--live", action="store_true",
+                        help="fenced live migration against a serving "
+                             "fleet (dual-read + move-on-write epoch)")
+    args = parser.parse_args()
+    logging.basicConfig(level="INFO")
+    store = build_store(args.kv)
+    try:
+        if args.live:
+            moved = migrate_flat_registry_live(
+                store, args.prefix, args.buckets
+            )
+        else:
+            moved = migrate_flat_registry(store, args.prefix, args.buckets)
+        print(f"migrated {moved} flat registry keys")
+    finally:
+        close = getattr(store, "close", None)
+        if close:
+            close()
+
+
+if __name__ == "__main__":
+    main()

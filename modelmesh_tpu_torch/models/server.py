@@ -122,6 +122,7 @@ class TorchModelStore:
     def __init__(self, capacity_bytes: int, device=None, devices=None):
         self.capacity_bytes = capacity_bytes
         self.device = device_mod.resolve_device(device)
+        device_mod.check_cublas_import_order(self.device)
         self.devices = resolve_devices(devices, self.device)
         self._models: dict[str, ServableModel] = {}
         self._lock = threading.Lock()

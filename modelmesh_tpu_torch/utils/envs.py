@@ -5,9 +5,10 @@ the knobs the port reads: the placement solve's, the model runtime's, the
 cluster layer's (the KV tables, plan distribution, greedy fallback, route
 cache and the lock/race/clock debug aids), the serving instance's and the
 serving pod's (static registration, bootstrap probation, request-header
-log context and the autoscale controller). ``get`` raises ``KeyError``
-for an unregistered name, so a typo'd knob fails at the call site instead
-of silently reading the default.
+log context and the autoscale controller), the launcher's and the remote
+KV backends'. ``get`` raises ``KeyError`` for an unregistered name, so a
+typo'd knob fails at the call site instead of silently reading the
+default.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class EnvVar:
     name: str
-    kind: str          # str | int | float | bool | list
+    kind: str          # str | int | float | bool | json | path | list
     default: str
     help: str
     consumer: str      # module that reads it
@@ -323,6 +324,33 @@ REGISTRY: dict[str, EnvVar] = {
                "stage host-tier snapshots streamed from live holders "
                "so demand ramps re-warm in ~ms instead of paying cold "
                "store loads", "autoscale/controller.py"),
+        # The launcher (serving/main.py) and the remote KV backends
+        # (kv/etcd.py): the reference's types, defaults and help.
+        EnvVar("MM_KV_URI", "str", "",
+               "coordination store URI; default for --kv (the k8s "
+               "manifests also substitute it into args directly)",
+               "serving/main.py"),
+        EnvVar("MM_LOG_LEVEL", "str", "INFO",
+               "process log level", "serving/main.py"),
+        EnvVar("MM_TYPE_CONSTRAINTS", "path", "",
+               "live-watched type-constraints JSON file",
+               "serving/main.py"),
+        EnvVar("MM_PAYLOAD_PROCESSORS", "list", "",
+               "payload processor URIs", "serving/main.py"),
+        EnvVar("MM_PER_MODEL_METRICS", "bool", "0",
+               "add a model_id label to per-request metrics "
+               "(accepts 1/0, true/false, yes/no, on/off; cardinality "
+               "opt-in, reference's per-model flag)",
+               "serving/main.py"),
+        EnvVar("MM_ZONE", "str", "",
+               "placement zone advertised in the instance record",
+               "serving/main.py"),
+        EnvVar("MM_LABELS", "list", "",
+               "comma-separated placement labels (type constraints)",
+               "serving/main.py"),
+        EnvVar("MM_ETCD_MAX_VALUE_BYTES", "int", str(1 << 20),
+               "etcd value budget (server --max-request-bytes quota)",
+               "kv/etcd.py"),
     ]
 }
 
@@ -363,3 +391,8 @@ def get_bool(name: str) -> bool:
     if raw in ("0", "false", "no", "off", ""):
         return False
     raise ValueError(f"{name}={raw!r} is not a boolean")
+
+
+def get_list(name: str) -> list[str]:
+    raw = get(name) or ""
+    return [s.strip() for s in raw.split(",") if s.strip()]

@@ -60,6 +60,18 @@ SERVER_MODULES = [
     "serving.vmodels", "serving.api",
 ]
 
+# The remote KV backends and the launcher: the two generated KV modules,
+# the mesh:// client and server, the etcd client and wire server, jute,
+# the ZooKeeper client and wire server, the migrator and the launcher.
+LAUNCHER_MODULES = [
+    "proto.mesh_kv_pb2", "proto.etcd_rpc_pb2", "kv.service", "kv.etcd",
+    "kv.etcd_server", "kv.jute", "kv.zookeeper", "kv.zk_server",
+    "kv.migrate", "serving.main",
+]
+
+# The command lines among them, each with a main().
+ENTRY_POINTS = ["serving.main", "kv.service", "kv.etcd_server", "kv.migrate"]
+
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ)
@@ -80,6 +92,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         got["modules"])
     # The serving pod's slice.
     assert {f"modelmesh_tpu_torch.{m}" for m in SERVER_MODULES} <= set(
+        got["modules"])
+    # The remote KV backends and the launcher.
+    assert {f"modelmesh_tpu_torch.{m}" for m in LAUNCHER_MODULES} <= set(
         got["modules"])
     assert got["leaked"] == []
     assert got["libs"] == []
@@ -152,3 +167,42 @@ def test_import_sets_cublas_workspace_default(preset):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == (preset or ":0:0")
+
+
+ENTRY_PROBE = r"""
+import importlib, json, runpy, sys
+module = sys.argv[1]
+sys.argv = [module, "--help"]
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+else:
+    code = None
+main = getattr(importlib.import_module(module), "main", None)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "modelmesh_tpu"
+    or m.startswith("modelmesh_tpu.")
+)
+print(json.dumps({"code": code, "leaked": leaked,
+                  "has_main": callable(main)}))
+"""
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_import_neither_jax_nor_the_jax_package(entry):
+    """``python -m modelmesh_tpu_torch.<entry> --help``: the command
+    line answers, and neither it nor the imports its ``main`` makes load
+    jax or the JAX package (the module's own imports are in the walk
+    above)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    module = f"modelmesh_tpu_torch.{entry}"
+    out = subprocess.run(
+        [sys.executable, "-c", ENTRY_PROBE, module], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"code": 0, "leaked": [], "has_main": True}
+    assert "usage:" in out.stdout
