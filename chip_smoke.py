@@ -358,7 +358,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              and no request fails; at quiescence the registry read over
              RemoteKV equals the live pods' caches; every pod exits 0;
              under 150 s. One cluster_stage line per stage.
-17. import_order — the cuBLAS rule (modelmesh_tpu_torch/__init__.py) in
+17. sim    — the port's simulator (modelmesh_tpu_torch/sim/) on the
+             card's host, in child processes through its entry points; it
+             takes no device and launches no kernel (the launch counters
+             are zeroed in the child before its runs and read after: all
+             0, CUDA never initialized there). (a) Every scripted
+             scenario of scenarios.ALL once through run_all(), each
+             one's verdict and wall time; (b) rolling_restart_under_zipf_load
+             twice, trace_lines() equal; (c) ``python -m
+             modelmesh_tpu_torch.sim --seed 0 --sweeps 8 --steps 40``: it
+             runs to its end with a verdict a seed, and a seed that fails
+             (seed 0 does, and others may, in the reference too: the
+             explorer's findings) names its invariants and prints its
+             replay line; (d) ``python -m
+             modelmesh_tpu_torch.sim --macro`` at the macro headline's
+             widths (1,000 pods, 1,000,000 users, 2,048 models, seed
+             1700, burn authority with admission) over a virtual 1,200 s
+             of its 86,400 s day, beside (a) to (c): exit 0, no
+             conservation violation, offered = served + shed + failed,
+             at least one request a user. Prints the digest, engine
+             events, requests simulated and each part's wall time; under
+             120 s.
+18. import_order — the cuBLAS rule (modelmesh_tpu_torch/__init__.py) in
              two fresh processes without CUBLAS_WORKSPACE_CONFIG: one runs
              a cuBLAS product, imports the port and must be refused a
              CUDA TorchModelStore (RuntimeError naming the fix); one sets
@@ -5834,6 +5855,182 @@ def phase_cluster(dev, card: str) -> dict:
     return result
 
 
+# The simulator (modelmesh_tpu_torch/sim/), on the card's host: it takes
+# no device and launches no kernel; its pods are full port instances in
+# front of SimLoader under a VirtualClock.
+SIM_BUDGET_S = 120.0
+SIM_REPLAYED = "rolling_restart_under_zipf_load"
+SIM_SWEEP = ("--seed", "0", "--sweeps", "8", "--steps", "40")
+# The macro headline's widths (bench_macro.py run_headline) at its seed;
+# its virtual day cut to 20 minutes (1,800 virtual s took 56.9-65.0 s of
+# the card host's wall time, over the 60 s this part may take).
+SIM_MACRO = {"pods": 1_000, "users": 1_000_000, "models": 2_048,
+             "day_s": 1_200, "seed": 1_700}
+SIM_MACRO_DAY_S = 86_400
+SIM_SCENARIOS_CHILD = """
+import json, sys, time
+from modelmesh_tpu_torch.ops import cuda_load, cuda_lse, cuda_random, cuda_sparse
+from modelmesh_tpu_torch.sim import scenarios
+from modelmesh_tpu_torch.sim.scenario import run_scenario
+mods = (cuda_load, cuda_lse, cuda_random, cuda_sparse)
+for m in mods:
+    m.reset_launches()
+t0 = time.perf_counter()
+results = scenarios.run_all()
+all_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+runs = [run_scenario(getattr(scenarios, sys.argv[1])()) for _ in range(2)]
+replay_s = time.perf_counter() - t0
+launches = {}
+for m in mods:
+    launches.update(m.launches)
+import torch
+print(json.dumps({
+    "scenarios": [{"name": r.name, "ok": r.ok, "wall_s": r.wall_s,
+                   "failed": sorted(k for k, v in r.verdicts.items() if v)}
+                  for r in results],
+    "run_all_s": all_s,
+    "replay": {"ok": [r.ok for r in runs], "wall_s": [r.wall_s for r in runs],
+               "equal": runs[0].trace_lines() == runs[1].trace_lines(),
+               "trace_lines": len(runs[0].trace_lines()), "seconds": replay_s},
+    "launches": launches, "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def sim_sweep_verdicts(out: str) -> dict:
+    """The explorer's output, seed by seed: its verdict, the run's wall
+    s, the invariants that failed and whether it printed the replay
+    line."""
+    seeds: dict = {}
+    current = None
+    for line in out.splitlines():
+        if line.startswith(("[PASS] seed=", "[FAIL] seed=")):
+            current = int(line.split("seed=")[1].split()[0])
+            seeds[current] = {"ok": line.startswith("[PASS]"), "failed": [],
+                              "replay": False,
+                              "wall_s": float(line.split("wall=")[1][:-1])}
+        elif current is not None and line.startswith("invariant ") and (
+                ": FAIL" in line):
+            seeds[current]["failed"].append(
+                line[len("invariant "):].split(":")[0])
+        elif current is not None and line.startswith("REPLAY: "):
+            seeds[current]["replay"] = True
+    return seeds
+
+
+def phase_sim(card: str) -> dict:
+    """The port's simulator on the card's host (module docstring, phase
+    17), in child processes through its entry points: every scripted
+    scenario through run_all() and one of them twice, the seeded
+    explorer's command line, and the macro fleet's at the headline's
+    widths, that one beside the others."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    macro_args = [sys.executable, "-m", "modelmesh_tpu_torch.sim", "--macro",
+                  "--authority", "burn", "--admission"] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in SIM_MACRO.items()]
+    macro = subprocess.Popen(macro_args, cwd=root, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    macro_io: dict = {}
+
+    def collect():
+        macro_io["out"], macro_io["err"] = macro.communicate()
+        macro_io["seconds"] = time.perf_counter() - t0
+
+    collector = threading.Thread(target=collect, name="sim-macro")
+    collector.start()
+    try:
+        t = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", SIM_SCENARIOS_CHILD, SIM_REPLAYED],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        scen_s = time.perf_counter() - t
+        check(child.returncode == 0,
+              f"sim: the scenarios' child exited {child.returncode}: "
+              f"{child.stderr[-2000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        t = time.perf_counter()
+        sweep = subprocess.run(
+            [sys.executable, "-m", "modelmesh_tpu_torch.sim", *SIM_SWEEP],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        sweep_s = time.perf_counter() - t
+        collector.join(timeout=300)
+    finally:
+        if macro.poll() is None:
+            macro.kill()
+        collector.join()
+    macro_out, macro_err = macro_io["out"], macro_io["err"]
+    macro_s = macro_io["seconds"]
+    seeds = sim_sweep_verdicts(sweep.stdout)
+    summary = json.loads(macro_out.strip().splitlines()[-1]) if (
+        macro.returncode == 0 and macro_out.strip()) else {}
+    result = {
+        "phase": "sim", "card": card,
+        "scenarios": {s["name"]: {"ok": s["ok"], "wall_s": s["wall_s"],
+                                  "failed": s["failed"]}
+                      for s in got["scenarios"]},
+        "scenarios_child_s": scen_s, "run_all_s": got["run_all_s"],
+        "replay": dict(got["replay"], scenario=SIM_REPLAYED),
+        "sweep": {"args": list(SIM_SWEEP), "exit_code": sweep.returncode,
+                  "seconds": sweep_s,
+                  "failed_seeds": {s: v["failed"] for s, v in seeds.items()
+                                   if not v["ok"]},
+                  "passed_seeds": sorted(s for s, v in seeds.items()
+                                         if v["ok"]),
+                  "run_wall_s": {s: v["wall_s"] for s, v in seeds.items()}},
+        "macro": {"args": macro_args[3:], "exit_code": macro.returncode,
+                  "seconds": macro_s,
+                  "cut": f"depth: a virtual {SIM_MACRO['day_s']} s of the "
+                         f"headline's {SIM_MACRO_DAY_S} s day; widths as "
+                         f"the headline's (pods, users, models, seed); the "
+                         f"command line's mix (classes hi 0.2 / default "
+                         f"0.8, no flash crowd or churn)",
+                  **{k: summary.get(k) for k in (
+                      "digest", "engine_events", "requests_simulated",
+                      "offered", "served", "shed", "failed", "p50_ms",
+                      "p99_ms", "classes", "fleet",
+                      "conservation_violations")}},
+        "launches_in_run": got["launches"],
+        "cuda_initialized_in_child": got["cuda_initialized"],
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    bad = [n for n, s in result["scenarios"].items() if not s["ok"]]
+    check(len(result["scenarios"]) == 15 and not bad,
+          f"sim: scenarios failed: {bad}")
+    check(all(got["replay"]["ok"]) and got["replay"]["equal"],
+          f"sim: {SIM_REPLAYED} twice: {got['replay']}")
+    check(sorted(seeds) == list(range(8))
+          and sweep.returncode in (0, 1)
+          and (sweep.returncode == 1) == any(not v["ok"]
+                                             for v in seeds.values()),
+          f"sim: the explorer exited {sweep.returncode} with "
+          f"{seeds}: {sweep.stderr[-2000:]}")
+    # A seed that fails is a finding of the explorer, as in the
+    # reference at these settings (ROADMAP.md queue 3): it must name the
+    # invariants it broke and print its replay line.
+    for s, v in seeds.items():
+        check(v["ok"] or (v["replay"] and v["failed"]),
+              f"sim: explorer seed {s} failed {v['failed']} (replay line "
+              f"printed: {v['replay']})")
+    check(macro.returncode == 0 and summary,
+          f"sim: the macro exited {macro.returncode}: {macro_err[-2000:]}")
+    check(summary["conservation_violations"] == []
+          and summary["offered"] == summary["served"] + summary["shed"]
+          + summary["failed"]
+          and summary["requests_simulated"] >= SIM_MACRO["users"],
+          f"sim: the macro's accounts: {result['macro']}")
+    check(not any(got["launches"].values())
+          and not got["cuda_initialized"],
+          f"sim: the scenarios touched the card: {got['launches']}")
+    check(result["seconds"] < SIM_BUDGET_S,
+          f"sim took {result['seconds']:.1f} s, over {SIM_BUDGET_S} s")
+    return result
+
+
 # The import-order check: a process that reached cuBLAS before importing
 # the port must be refused a CUDA model store, and one that set the
 # variable first must keep batch parity.
@@ -5864,7 +6061,7 @@ BATCH_PARITY_TOL = 1.2e-6
 
 def phase_import_order(card: str) -> dict:
     """The cuBLAS import-order rule on the card, in two fresh processes
-    (module docstring, phase 17)."""
+    (module docstring, phase 18)."""
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
@@ -5953,6 +6150,7 @@ def main() -> int:
     instance = phase_instance(dev, card)
     server = phase_server(dev, card)
     cluster = phase_cluster(dev, card)
+    sim = phase_sim(card)
     phase_import_order(card)
     print(card)
     # The column-only kernels run on the wide paths alone (one solve each;
@@ -6013,6 +6211,8 @@ def main() -> int:
         entry["server_launches"] = server["launches_in_run"].get(
             entry["name"], 0)
         entry["cluster_launches"] = cluster["launches_in_run"].get(
+            entry["name"], 0)
+        entry["sim_launches"] = sim["launches_in_run"].get(
             entry["name"], 0)
     emit({"kernels": entries})
     emit({"ok": True, "device": {

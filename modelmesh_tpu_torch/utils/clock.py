@@ -9,7 +9,7 @@ Every module that used to call ``time.time`` / ``time.monotonic`` /
 leases, timeouts, timestamps in records — reads through this module
 instead. Production installs nothing and pays one extra attribute lookup
 (``SystemClock`` delegates straight to ``time``); the simulation harness
-(``modelmesh_tpu/sim/``) installs a ``VirtualClock`` so hours of
+(``modelmesh_tpu_torch/sim/``) installs a ``VirtualClock`` so hours of
 janitor/reaper/lease cadence advance in milliseconds of wall time.
 
 Clock-injection rules for new code (see docs/testing.md):

@@ -5,8 +5,8 @@ the knobs the port reads: the placement solve's, the model runtime's, the
 cluster layer's (the KV tables, plan distribution, greedy fallback, route
 cache and the lock/race/clock debug aids), the serving instance's and the
 serving pod's (static registration, bootstrap probation, request-header
-log context and the autoscale controller), the launcher's and the remote
-KV backends'. ``get`` raises ``KeyError`` for an unregistered name, so a
+log context and the autoscale controller), the launcher's, the remote
+KV backends' and the simulator's. ``get`` raises ``KeyError`` for an unregistered name, so a
 typo'd knob fails at the call site instead of silently reading the
 default.
 """
@@ -351,6 +351,20 @@ REGISTRY: dict[str, EnvVar] = {
         EnvVar("MM_ETCD_MAX_VALUE_BYTES", "int", str(1 << 20),
                "etcd value budget (server --max-request-bytes quota)",
                "kv/etcd.py"),
+        EnvVar("MM_SIM_SEED", "int", "0",
+               "base seed for the deterministic cluster simulator's "
+               "randomized exploration (python -m modelmesh_tpu_torch.sim); "
+               "the same seed replays the identical fault schedule",
+               "sim/explore.py"),
+        EnvVar("MM_SIM_STEPS", "int", "40",
+               "random fault/workload events generated per simulated "
+               "scenario seed", "sim/explore.py"),
+        EnvVar("MM_SIM_LOG_EVENTS", "int", "262144",
+               "bound on SimCluster's per-request and batch-dispatch "
+               "observation rings (total-order seq retained; 0 = "
+               "unbounded, the pre-ring behavior) — macro-scale runs "
+               "must not accumulate per-probe rows forever",
+               "sim/ringlog.py"),
     ]
 }
 

@@ -8,11 +8,12 @@ on the CPU.
   the port's forecaster exactly equal to the reference's.
 - **The controller:** ``TestScaleUp``, ``TestScaleDown``, ``TestPrewarm``,
   ``TestAuthorityGating`` and ``TestRateLeakRegression`` of
-  ``tests/test_autoscale.py``, each script run in both packages. The port
-  has no ``sim/``, so the fleet is built directly: three instances under
-  the package's own installed ``VirtualClock``, each in front of a copy of
-  the simulator's streaming loader (``SimLoader``'s load, stream and
-  count semantics), peers called directly. Burn is injected through each
+  ``tests/test_autoscale.py``, each script run in both packages. The
+  fleet is built here, alike in both: three instances under the
+  package's own installed ``VirtualClock``, each in front of that
+  package's ``sim.harness.SimLoader``, peers called directly.
+  ``tests/test_autoscale.py`` itself runs whole on the port's
+  ``SimCluster`` in ``test_torch_sim.py``. Burn is injected through each
   instance's own ``SloTracker``, ticks are driven by hand, and every
   script's decision logs (``AutoscaleController.decisions``, virtual
   timestamps included) must equal the reference controller's.
@@ -20,9 +21,9 @@ on the CPU.
 
 from __future__ import annotations
 
+import importlib
 import json
 import time as _wall
-import zlib
 
 import numpy as np
 import pytest
@@ -36,81 +37,9 @@ SPEC = "hot:p99<100ms;default:p99<10000ms"
 
 
 def _sim_loader(pkg):
-    """``modelmesh_tpu/sim/harness.py::SimLoader`` on ``pkg``'s SPI: no
-    load delay, deterministic sizes, weight streaming by chunk counts."""
-    spi = pkg.spi
-    import threading
-
-    class SimLoader(spi.ModelLoader):
-        transfer_chunks = 8
-
-        def __init__(self, capacity_bytes=64 << 20,
-                     default_size_bytes=8 << 20):
-            self.capacity_bytes = capacity_bytes
-            self.default_size_bytes = default_size_bytes
-            self.loaded_models: dict = {}
-            self.load_count = 0
-            self.stream_load_count = 0
-            self.unload_count = 0
-            self._lock = threading.Lock()
-
-        def startup(self):
-            return spi.LocalInstanceParams(
-                capacity_bytes=self.capacity_bytes, load_concurrency=8,
-                load_timeout_ms=30_000)
-
-        def load(self, model_id, info):
-            size = self._size_for(model_id)
-            with self._lock:
-                self.loaded_models[model_id] = size
-                self.load_count += 1
-            return spi.LoadedModel(handle=model_id, size_bytes=size)
-
-        def predict_size(self, model_id, info):
-            return self._size_for(model_id)
-
-        def model_size(self, model_id, handle):
-            with self._lock:
-                return self.loaded_models.get(model_id, 0)
-
-        def unload(self, model_id):
-            with self._lock:
-                self.loaded_models.pop(model_id, None)
-                self.unload_count += 1
-
-        def is_loaded(self, model_id):
-            with self._lock:
-                return model_id in self.loaded_models
-
-        def _size_for(self, model_id):
-            h = zlib.crc32(model_id.encode()) % 1000
-            return int(self.default_size_bytes * (0.5 + h / 1000.0))
-
-        @property
-        def supports_weight_streaming(self):
-            return True
-
-        def export_weights(self, model_id, handle):
-            with self._lock:
-                if model_id not in self.loaded_models:
-                    return None
-            n = self.transfer_chunks
-            return (spi.WeightChunk(seq=i, payload=f"{model_id}:{i}".encode(),
-                                    layer=i, last=i == n - 1)
-                    for i in range(n))
-
-        def load_from_stream(self, model_id, info, chunks,
-                             partial_ready=None):
-            size = self._size_for(model_id)
-            seen = sum(1 for _ in chunks)
-            if seen == 0:
-                raise spi.ModelLoadException(f"{model_id}: empty stream")
-            with self._lock:
-                self.loaded_models[model_id] = size
-                self.stream_load_count += 1
-            return spi.LoadedModel(handle=model_id, size_bytes=size)
-
-    return SimLoader()
+    """``pkg``'s own ``sim/harness.py::SimLoader``: no load delay,
+    deterministic sizes, weight streaming by chunk counts."""
+    return importlib.import_module(f"{pkg.root}.sim.harness").SimLoader()
 
 
 class SimPod:

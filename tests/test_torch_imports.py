@@ -69,8 +69,19 @@ LAUNCHER_MODULES = [
     "kv.migrate", "serving.main",
 ]
 
+# The simulator: the fault-injectable KV, the event loop and modeled
+# fleet, the in-process cluster, invariants, trace assembly, the
+# scenario engine and its scripted scenarios, the macro workload and the
+# explorer with its command line.
+SIM_MODULES = [
+    "sim", "sim.ringlog", "sim.kv", "sim.engine", "sim.harness",
+    "sim.invariants", "sim.tracing", "sim.scenario", "sim.scenarios",
+    "sim.workload", "sim.explore", "sim.__main__",
+]
+
 # The command lines among them, each with a main().
-ENTRY_POINTS = ["serving.main", "kv.service", "kv.etcd_server", "kv.migrate"]
+ENTRY_POINTS = ["serving.main", "kv.service", "kv.etcd_server", "kv.migrate",
+                "sim.explore"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -95,6 +106,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         got["modules"])
     # The remote KV backends and the launcher.
     assert {f"modelmesh_tpu_torch.{m}" for m in LAUNCHER_MODULES} <= set(
+        got["modules"])
+    # The simulator.
+    assert {f"modelmesh_tpu_torch.{m}" for m in SIM_MODULES} <= set(
         got["modules"])
     assert got["leaked"] == []
     assert got["libs"] == []
@@ -206,3 +220,17 @@ def test_entry_points_import_neither_jax_nor_the_jax_package(entry):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"code": 0, "leaked": [], "has_main": True}
     assert "usage:" in out.stdout
+
+
+def test_sim_package_command_answers():
+    """``python -m modelmesh_tpu_torch.sim --help`` (the package's
+    ``__main__``) answers, and loads neither jax nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", ENTRY_PROBE, "modelmesh_tpu_torch.sim"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["code"] == 0 and got["leaked"] == []
+    assert "usage: python -m modelmesh_tpu_torch.sim" in out.stdout

@@ -22,8 +22,11 @@
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import importlib
 import inspect
+import linecache
 import re
 import sys
 import threading
@@ -52,10 +55,51 @@ TESTS = Path(__file__).resolve().parent
 
 
 def port_source(ref_test: str) -> str:
-    """``tests/<ref_test>.py`` with every ``modelmesh_tpu.`` import
-    re-pointed at ``modelmesh_tpu_torch.``."""
+    """``tests/<ref_test>.py`` with every ``modelmesh_tpu.`` name and
+    every ``from modelmesh_tpu import`` re-pointed at the port."""
     src = (TESTS / f"{ref_test}.py").read_text()
-    return re.sub(r"\bmodelmesh_tpu\.", "modelmesh_tpu_torch.", src)
+    return re.sub(r"\bmodelmesh_tpu(?=\.|\s+import\b)",
+                  "modelmesh_tpu_torch", src)
+
+
+def _select(tree: ast.Module, only) -> ast.Module:
+    """The top-level statements of ``tree`` that the definitions named in
+    ``only`` need: those definitions, and every statement binding a name
+    they (or a statement already taken) read, or a fixture they request,
+    taken in source order."""
+    def bound(node):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            return {node.name}
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            return {(a.asname or a.name).split(".")[0] for a in node.names}
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [
+                node.target]
+            return {n.id for t in targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        return set()
+
+    def needs(node):
+        names = {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+        for fn in ast.walk(node):
+            if isinstance(fn, ast.FunctionDef):
+                names |= {a.arg for a in fn.args.args}
+        return names
+
+    body = tree.body
+    missing = set(only) - {n for node in body for n in bound(node)}
+    if missing:
+        raise AssertionError(f"not in the module: {sorted(missing)}")
+    keep = {i for i, node in enumerate(body) if bound(node) & set(only)}
+    want = set().union(*(needs(body[i]) for i in keep))
+    while True:
+        more = {i for i, node in enumerate(body)
+                if i not in keep and bound(node) & want}
+        if not more:
+            break
+        keep |= more
+        want = want.union(*(needs(body[i]) for i in more))
+    return ast.Module(body=[body[i] for i in sorted(keep)], type_ignores=[])
 
 
 def _is_fixture(obj) -> bool:
@@ -81,21 +125,31 @@ def _class_fixture(fixture):
     return pytest.fixture(name=fixture.name)(adapter)
 
 
-def mirror(ref_test: str, into: dict) -> list[str]:
+def mirror(ref_test: str, into: dict, only=None) -> list[str]:
     """Run the reference test module ``ref_test`` on the port: its source
     (``port_source``) is executed as a module of its own, and its test
-    classes and fixtures are exported into ``into`` (the calling test
-    module's globals). A fixture whose name ``into`` already holds (two
-    mirrored modules each with a ``wire``) goes to each of the module's
-    classes instead, as a class fixture. Returns the exported class
-    names."""
+    classes, module-level test functions and fixtures are exported into
+    ``into`` (the calling test module's globals). ``only`` names the
+    classes and functions to take from a module whose other cases need
+    what the port does not have: then only they, and the statements
+    they need (``_select``), are executed. A fixture whose name ``into``
+    already holds (two mirrored modules each with a ``wire``) goes to
+    each of the module's classes instead, as a class fixture. Returns
+    the exported class and function names."""
     module = types.ModuleType(f"{into['__name__']}.{ref_test}")
     module.__file__ = str(TESTS / f"{ref_test}.py")
     # Registered before it runs: dataclasses look their module up.
     sys.modules[module.__name__] = module
     ns = module.__dict__
-    exec(compile(port_source(ref_test), f"<port copy of tests/{ref_test}.py>",
-                 "exec"), ns)
+    source = port_source(ref_test)
+    tree = ast.parse(source)
+    if only is not None:
+        tree = _select(tree, only)
+    filename = f"<port copy of tests/{ref_test}.py>"
+    # Tracebacks show the copy's lines.
+    linecache.cache[filename] = (len(source), None,
+                                 source.splitlines(True), filename)
+    exec(compile(tree, filename, "exec"), ns)
     per_class = {}
     for name, obj in list(ns.items()):
         if not _is_fixture(obj):
@@ -106,19 +160,71 @@ def mirror(ref_test: str, into: dict) -> list[str]:
             into[name] = obj
     names = []
     for name, obj in ns.items():
-        if name.startswith("test_") and callable(obj):
-            raise AssertionError(
-                f"{ref_test}.{name}: module-level tests are not mirrored")
-        if not (isinstance(obj, type) and name.startswith("Test")):
+        is_test = name.startswith("test_") and inspect.isfunction(obj)
+        is_class = isinstance(obj, type) and name.startswith("Test")
+        if not (is_test or is_class):
             continue
         if name in into:
             raise AssertionError(f"{ref_test}.{name} collides")
+        if is_test and per_class:
+            raise AssertionError(
+                f"{ref_test}.{name}: a module-level test cannot take a "
+                f"class fixture ({sorted(per_class)})")
         for fname, fixture in per_class.items():
             if fname not in vars(obj):
                 setattr(obj, fname, fixture)
         into[name] = obj
         names.append(name)
     return names
+
+
+def _cases(obj) -> list[str]:
+    """The case ids pytest makes of a test function: one per row of its
+    ``parametrize`` marks (their ids, or the row's index)."""
+    rows = [""]
+    for mark in getattr(obj, "pytestmark", []):
+        if mark.name != "parametrize":
+            continue
+        values = list(mark.args[1])
+        ids = mark.kwargs.get("ids")
+        names = [ids(v) if callable(ids) else ids[i] if ids else str(i)
+                 for i, v in enumerate(values)]
+        rows = [f"{r}-{n}" if r else n for r in rows for n in names]
+    return [f"[{r}]" if r else "" for r in rows]
+
+
+def twins(ref_test: str, into: dict, only=None) -> tuple[list, list]:
+    """The cases of ``tests/<ref_test>.py`` (those named in ``only``, if
+    given) and their port twins in ``into``, each as sorted
+    ``Class::test[params]`` ids; and the mirrored copy's own names must
+    hold nothing of the JAX package."""
+    ref = vars(importlib.import_module(f"tests.{ref_test}"))
+    copy = vars(sys.modules[f"{into['__name__']}.{ref_test}"])
+
+    def ids(ns, names):
+        out = []
+        for name in names:
+            obj = ns.get(name)
+            if inspect.isfunction(obj):
+                out += [name + c for c in _cases(obj)]
+            elif isinstance(obj, type):
+                for attr, fn in sorted(vars(obj).items()):
+                    if attr.startswith("test_") and inspect.isfunction(fn):
+                        out += [f"{name}::{attr}{c}" for c in _cases(fn)]
+        return sorted(out)
+
+    wanted = only if only is not None else [
+        n for n, o in ref.items()
+        if (n.startswith("test_") and inspect.isfunction(o))
+        or (n.startswith("Test") and isinstance(o, type))]
+    for name, obj in copy.items():
+        origin = getattr(obj, "__module__", None) or getattr(
+            obj, "__name__", "")
+        if isinstance(origin, str) and (
+                origin == "modelmesh_tpu" or origin.startswith(
+                    "modelmesh_tpu.")):
+            raise AssertionError(f"{ref_test}.{name} is {origin}'s")
+    return ids(ref, wanted), ids(into, wanted)
 
 
 MIRRORED = {
