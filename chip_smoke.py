@@ -30,9 +30,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              K-th key, the mask-only kernel). The guard band's draw bound,
              checked over all 2^24 uniforms. The implied-load kernel at the
              auctions' shape (int64[131072, 8] -> 1024, the sparse
-             auction's 5-slot view, 1536 instances): bitwise at integer
-             sizes, rtol 1e-6 at f32 sizes, two launches bitwise, timed
-             beside index_add_.
+             auction's 5-slot view, 1536 instances; 12 slots and 4,100
+             instances too): bitwise at integer sizes, rtol 1e-6 at f32
+             sizes, bitwise its summation order
+             written in PyTorch (implied_load_tree) at any sizes, two
+             launches bitwise, one launch and one kernel a call; timed at
+             all three shapes (calls back to back, device time by kernel,
+             host time a call) beside its bound and index_add_.
    lse_kernels — the row-only, column-only and fused LSE kernels against
              their plain versions at the tier, at the dense tier's real
              widths ([131072, 128], [1000, 96], [1000, 64]), at a ragged
@@ -510,6 +514,10 @@ SPARSE_TOL = dict(rtol=1e-5, atol=1e-6)
 # The auctions' implied load at the main path's shape: N x MAX_COPIES slots
 # onto the tier's instances, sizes as the synthetic fleet's (16-255).
 LOAD_TOL = dict(rtol=1e-6, atol=0.0)
+# Timed: the tier, the sparse auction's 5-slot view of it, the wide
+# fleets' 1536 instances; host time per call over this many calls.
+LOAD_TIMED = ("tier", "nsel", "wide")
+LOAD_HOST_REPS = 200
 # The threefry draw: held bitwise against its plain version at these
 # shapes (and the card's bits against the CPU's at the first), and in
 # Gumbel values at the dense tier's [131072, 1024], where it is timed.
@@ -907,33 +915,108 @@ def load_operands(gen, n: int, slots: int, m: int, integer: bool = True):
     return idx, valid, sizes
 
 
+class KeepPartials:
+    """A ``col_psum`` that returns the block partials as they are: an
+    implied-load call with it runs the kernel's pass without a combine."""
+
+    def __call__(self, x):
+        return x
+
+    def combine(self, fn, *partials):
+        return partials[0]
+
+
+def load_timing(dev, card: str, idx, valid, sizes, m: int) -> dict:
+    """One implied-load shape timed: calls back to back (``ms``), the
+    device time by kernel and the kernel records per call under
+    torch.profiler, the pass alone (no combine), the wrapper's host time
+    per call, the plain version, index_add_ of the same weights (built
+    outside the timing) and the bound (the entries' idx and valid bytes,
+    sizes and the load once)."""
+    cuda_load = load_ops()
+    n, s = idx.shape
+    contrib = (sizes[:, None] * valid.to(torch.float32)).reshape(-1)
+    flat = idx.reshape(-1)
+
+    def call():
+        return cuda_load.implied_load(idx, valid, sizes, m)
+
+    split = kernel_split(call, KERNEL_REPS)
+    pass_split = kernel_split(
+        lambda: cuda_load.implied_load(idx, valid, sizes, m,
+                                       col_psum=KeepPartials()), KERNEL_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOAD_HOST_REPS):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / LOAD_HOST_REPS
+    torch.cuda.synchronize()
+    return {
+        "shape": [n, s], "instances": m, "row_stride": idx.stride(0),
+        "ms": time_ms(call, KERNEL_REPS),
+        "plain_ms": time_ms(
+            lambda: cuda_load.implied_load_ref(idx, valid, sizes, m), 5),
+        "library_ms": time_ms(
+            lambda: torch.zeros(m, device=dev).index_add_(0, flat, contrib),
+            KERNEL_REPS),
+        "kernel_split_ms": {k: v[0] for k, v in split.items()},
+        "device_ms": sum(v[0] for v in split.values()),
+        "kernels_per_call": sum(v[1] for v in split.values()),
+        # The pass alone: the block partials, no combine.
+        "pass_device_ms": sum(v[0] for v in pass_split.values()),
+        "host_ms_per_call": host_ms,
+        **bound("implied_load", n * s * 9 + n * 4 + m * 4, n * s, card),
+    }
+
+
 def phase_load_kernel(dev, card: str) -> dict:
     """The implied-load kernel against its plain version (the one-hot
     compare-reduce) at the auctions' shapes: bitwise at integer sizes
-    (every sum exact), within LOAD_TOL at f32 sizes; two launches on one
-    input bitwise; timed beside its bound and index_add_."""
+    (every sum exact), within LOAD_TOL at f32 sizes, and bitwise against
+    ``implied_load_tree`` (the kernel's summation order in PyTorch) at
+    any sizes; two launches on one input bitwise; one launch and one
+    kernel a call. Timed at the tier, the sparse auction's view and the
+    wide fleets' width, each beside its bound and index_add_."""
     cuda_load = load_ops()
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n, m = TIER
     checked = {}
+    timed = {}
     cases = {"tier": (n, MAX_COPIES, m, True),
              "tier_f32": (n, MAX_COPIES, m, False),
              "nsel": (n, MAX_COPIES, m, True),
+             "nsel_f32": (n, MAX_COPIES, m, False),
              "wide": (WIDE[0], MAX_COPIES, WIDE[1], True),
-             "ragged": (RAGGED[0], 3, RAGGED[1], True)}
+             "wide_f32": (WIDE[0], MAX_COPIES, WIDE[1], False),
+             "ragged": (RAGGED[0], 3, RAGGED[1], True),
+             # Paths the auctions do not take: 12 slots a row (two rounds
+             # of loads a thread) and 4,100 instances (three passes of a
+             # warp histogram's 2,048 bins).
+             "rounds_f32": (RAGGED[0], 12, RAGGED[1], False),
+             "slabs": (4096, MAX_COPIES, 4100, True)}
     for tag, (rows, slots, cols, integer) in cases.items():
         idx, valid, sizes = load_operands(gen, rows, slots, cols, integer)
-        if tag == "nsel":  # the sparse auction's first 5 slots, as a view
+        if tag.startswith("nsel"):  # the sparse auction's first 5 slots
             idx, valid = idx[:, :5], valid[:, :5]
+        before = cuda_load.launches["implied_load"]
         got = cuda_load.implied_load(idx, valid, sizes, cols)
+        launched = cuda_load.launches["implied_load"] - before
         again = cuda_load.implied_load(idx, valid, sizes, cols)
         ref = cuda_load.implied_load_ref(idx, valid, sizes, cols)
+        tree = cuda_load.implied_load_tree(idx, valid, sizes, cols)
         err = float((got - ref).abs().max().item())
-        checked[tag] = {"shape": [rows, slots], "instances": cols,
-                        "max_abs_err": err,
-                        "differs_from_plain": bitwise_differs(got, ref)}
+        checked[tag] = {"shape": list(idx.shape), "instances": cols,
+                        "row_stride": idx.stride(0), "max_abs_err": err,
+                        "differs_from_plain": bitwise_differs(got, ref),
+                        "differs_from_tree": bitwise_differs(got, tree),
+                        "launches_per_call": launched}
+        check(launched == 1, f"load {tag}: {launched} launches for a call")
         check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
               f"load {tag}: two launches on one input differ")
+        check(torch.equal(got.view(torch.int32), tree.view(torch.int32)),
+              f"load {tag}: differs from its summation order "
+              f"(implied_load_tree) in {checked[tag]['differs_from_tree']} "
+              f"instances")
         if integer:
             check(torch.equal(got, ref),
                   f"load {tag}: differs from the plain version at integer "
@@ -942,26 +1025,14 @@ def phase_load_kernel(dev, card: str) -> dict:
             check(torch.allclose(got, ref, **LOAD_TOL),
                   f"load {tag}: differs from the plain version "
                   f"(max abs {err})")
-    idx, valid, sizes = load_operands(gen, n, MAX_COPIES, m)
-    contrib = (sizes[:, None] * valid.to(torch.float32)).reshape(-1)
-    flat = idx.reshape(-1)
-    nbytes = idx.numel() * 9 + n * 4 + m * 4
-    result = {
-        "shape": [n, MAX_COPIES], "instances": m,
-        "max_abs_err": checked["tier"]["max_abs_err"],
-        "ms": time_ms(lambda: cuda_load.implied_load(idx, valid, sizes, m),
-                      KERNEL_REPS),
-        "plain_ms": time_ms(
-            lambda: cuda_load.implied_load_ref(idx, valid, sizes, m), 5),
-        # index_add_ of the weights (built outside the timing).
-        "library_ms": time_ms(
-            lambda: torch.zeros(m, device=dev).index_add_(0, flat, contrib),
-            KERNEL_REPS),
-        "kernel_split_ms": kernel_split_ms(
-            lambda: cuda_load.implied_load(idx, valid, sizes, m),
-            KERNEL_REPS),
-        **bound("implied_load", nbytes, idx.numel(), card),
-    }
+        if tag in LOAD_TIMED:
+            timed[tag] = dict(load_timing(dev, card, idx, valid, sizes, cols),
+                              max_abs_err=err)
+            check(timed[tag]["kernels_per_call"] == 1,
+                  f"load {tag}: {timed[tag]['kernels_per_call']} kernels a "
+                  f"call ({timed[tag]['kernel_split_ms']})")
+        del idx, valid, sizes, got, again, ref, tree
+    result = dict(timed.pop("tier"), shapes=timed)
     emit({"phase": "load_kernel", "card": card, "checked": checked,
           "implied_load": result})
     return {"implied_load": result}
@@ -1313,20 +1384,32 @@ def device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
-def kernel_split_ms(fn, reps: int) -> dict:
-    """Device ms per call of each kernel ``fn`` launches, under
-    torch.profiler."""
+def kernel_split(fn, reps: int, tries: int = 3) -> dict:
+    """name -> (device ms, records) per call of each kernel ``fn``
+    launches, under torch.profiler. A session that recorded no device
+    activity at all (CUPTI now and then drops one of several sessions run
+    back to back) is run again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {name: ms / reps
-            for name, (ms, _) in device_ms_by_kernel(prof).items()}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_ms_by_kernel(prof)
+        if by_name:
+            break
+    return {name: (ms / reps, count / reps)
+            for name, (ms, count) in by_name.items()}
+
+
+def kernel_split_ms(fn, reps: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, under
+    torch.profiler."""
+    return {name: ms for name, (ms, _) in kernel_split(fn, reps).items()}
 
 
 def phase_profile(dev, cols, phase: str = "profile", mesh=None) -> None:
@@ -6170,6 +6253,12 @@ def main() -> int:
                                   {"implied_load": ("main", MAIN_SOLVES)})
     load_entries[0]["dense_main_launches"] = (
         dense_run["launches"]["implied_load"])
+    # One kernel a call: its device time, the pass alone, the wrapper's
+    # host time, and the sparse auction's view and the wide fleets' width.
+    load_entries[0].update(
+        {key: load_kernel["implied_load"][key]
+         for key in ("device_ms", "pass_device_ms", "kernel_split_ms",
+                     "kernels_per_call", "host_ms_per_call", "shapes")})
     # The steady cell's incremental refreshes run kernel 4 (the dirty
     # rows' row potential) and the implied load once each.
     per_refresh = steady["incremental"]["launches_per_incremental_refresh"]

@@ -71,7 +71,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "mm_lse_col_combine": [_P, _P, _P, _P, _I, _I, _P],
     },
     "implied_load": {
-        "mm_implied_load": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _P],
+        "mm_implied_load": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _I,
+                            _I, _P],
         "mm_load_combine": [_P, _P, _I, _I, _P],
     },
     "threefry": {
@@ -81,6 +82,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  #: guarded-by: _lock
+# Bound functions by (library, function), filled at first launch: a launch
+# takes no lock once its library is loaded.
+_fns: dict[tuple[str, str], object] = {}
 # Serializes the wrappers' launch counts: the shards of a mesh launch from
 # threads of their own.
 _count_lock = threading.Lock()
@@ -228,12 +232,26 @@ def count_launch(table: dict, name: str) -> None:
         table[name] += 1
 
 
+def current_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(lib_name: str, fn_name: str, device, *args) -> None:
     """Call ``fn_name`` of library ``lib_name`` on the current stream of
-    ``device``; raises when the launch was refused."""
-    lib = load_library(lib_name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*args, stream)
+    ``device``; raises when the launch was refused. The host's current
+    device is switched only when it is another: a kernel launches on the
+    current device."""
+    fn = _fns.get((lib_name, fn_name))
+    if fn is None:
+        fn = _fns.setdefault((lib_name, fn_name),
+                             getattr(load_library(lib_name), fn_name))
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        err = fn(*args, current_stream(current))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, current_stream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed (CUDA error {err})")

@@ -23,7 +23,7 @@ wrappers on its own device (``parallel.mesh.shard_map``):
 On the card a column reduction over ``mdl`` gathers the shards' block
 partials in rank order and runs the kernel's fixed-order combine once over
 all of them (``parallel.mesh.AxisSum``), so with block heights that are
-multiples of the kernels' row blocks (256 rows; 4096 implied-load entries)
+multiples of the kernels' row blocks (256 rows; 1024 for the implied load)
 the column sums are the single-device solve's bit for bit, and a mesh
 whose blocks are whole rows (``n x 1``) gives the single-device placement.
 Across ``inst`` the row LSE is combined as the reference combines it,

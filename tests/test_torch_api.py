@@ -419,6 +419,18 @@ def _api_script(stub, apb, call):
         except grpc.RpcError as e:
             return e.code().name
 
+    def settled(fn, req, want, timeout_s=10.0):
+        """``rec(fn, req)`` once it answers ``want``, or its answer at the
+        deadline. A vmodel's status falls back to the pod's watch-fed view
+        when the direct KV read misses, and the view drops a deleted vmodel
+        a moment after the delete returns (in both packages)."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            got = rec(fn, req)
+            if got == want or time.monotonic() > deadline:
+                return got
+            time.sleep(0.02)
+
     info = apb.ModelInfo(model_type="example", model_path="mem://x")
     out = {}
     out["register"] = rec(stub.RegisterModel, apb.RegisterModelRequest(
@@ -448,8 +460,9 @@ def _api_script(stub, apb, call):
         vmodel_id="vy", target_model_id="y", info=info, update_only=True))
     out["delete_vmodel"] = rec(stub.DeleteVModel,
                                apb.DeleteVModelRequest(vmodel_id="vx"))
-    out["vmodel_gone"] = rec(stub.GetVModelStatus,
-                             apb.GetVModelStatusRequest(vmodel_id="vx"))
+    out["vmodel_gone"] = settled(stub.GetVModelStatus,
+                                 apb.GetVModelStatusRequest(vmodel_id="vx"),
+                                 "NOT_FOUND")
     out["unregister"] = rec(stub.UnregisterModel,
                             apb.UnregisterModelRequest(model_id="x-1"))
     out["status_gone"] = rec(stub.GetModelStatus,

@@ -16,7 +16,9 @@ one-pass selection kernel where the tree has one
 (``cuda_sparse.select_candidates``), and the main path's gather as the
 tree runs it (``topk_candidates``, then ``masked_row_min`` where the gather
 does not pack the mask); each with its device time by kernel. The implied
-load where the tree has the kernel (``cuda_load``), beside index_add_.
+load where the tree has the kernel (``cuda_load``), beside index_add_,
+at the tier, its 5-slot view and the wide fleets' [12288, 8] -> 1536,
+with the wrapper's host time by part.
 The LSE wrappers are timed at [131072, 1024] and at the dense tier's real
 width [131072, 128]: the row and column kernels, one unfused iteration
 (row LSE, f, column LSE) back to back, and the fused step where the tree
@@ -140,8 +142,11 @@ def gather_calls(cs, C) -> dict:
 
 
 def load_times(cs, gen) -> dict:
-    """The implied load at the auctions' shape, where the tree has the
-    kernel, beside index_add_ of the same weights."""
+    """The implied load beside index_add_ of the same weights; where the
+    tree has the kernel, ``cs.load_timing`` at the tier, the sparse
+    auction's 5-slot view and the wide fleets' width (calls back to back,
+    device time by kernel, host time a call), and the wrapper's host time
+    by part at the tier."""
     import torch
     from modelmesh_tpu_torch.ops import auction
 
@@ -158,6 +163,56 @@ def load_times(cs, gen) -> dict:
 
     out["implied_load_ms"] = cs.time_ms(
         lambda: cuda_load.implied_load(idx, valid, sizes, m), cs.KERNEL_REPS)
+    card = cs.card_line()
+    wide = cs.load_operands(gen, cs.WIDE[0], auction.MAX_COPIES, cs.WIDE[1])
+    out["shapes"] = {
+        "tier": cs.load_timing(idx.device, card, idx, valid, sizes, m),
+        "nsel": cs.load_timing(idx.device, card, idx[:, :5], valid[:, :5],
+                               sizes, m),
+        "wide": cs.load_timing(idx.device, card, *wide, cs.WIDE[1]),
+    }
+    out["host_parts_us"] = load_host_parts(cuda_load, idx, valid, sizes, m)
+    return out
+
+
+def load_host_parts(cuda_load, idx, valid, sizes, m: int,
+                    reps: int = 2000) -> dict:
+    """Host microseconds a call of each part an implied-load call has
+    (the parts of either tree's wrapper, and the whole call), over
+    ``reps`` calls each on the host's clock, no synchronization inside."""
+    import time
+
+    import torch
+    from modelmesh_tpu_torch.ops import _build
+
+    dev = sizes.device
+    table = {"x": 0}
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "check": lambda: cuda_load._check(idx, valid, sizes),
+        "rows": lambda: (cuda_load._rows(idx), cuda_load._rows(valid)),
+        "empty": lambda: torch.empty(m, device=dev),
+        "load_library": lambda: _build.load_library(cuda_load.LIB),
+        "device_context": device_context,
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "current_device": torch.cuda.current_device,
+        "count_launch": lambda: _build.count_launch(table, "x"),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "call": lambda: cuda_load.implied_load(idx, valid, sizes, m),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
     return out
 
 
