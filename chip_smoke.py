@@ -135,6 +135,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              (launch counters zeroed just before it: one draw a solve); the
              dense parity fleet (10,000 x 128) under the pin on the card
              and on the CPU, with phase 4's gates.
+   weight_draw — the model weights' jax.random.normal drawn on the card
+             (csrc/threefry.cu's normal mode, via cuda_random.normal)
+             against its plain version bitwise: bf16 at 25,497,600
+             elements (the sharded group's parameter count) and at 65,536
+             (all 128 values of a bf16 uniform reached), f32 at the MoE
+             routers' [128, 8] and [64, 16] and at 2**20; each but the
+             first also against the CPU's draw. Time per launch over 20 at
+             the bf16 draw beside its bound, the plain version and
+             torch.randn (other bits), and in f32 at 2**20. Every
+             MODEL_SPECS, MOE_SPECS and INST_SHARDED spec built on the
+             card (launch counters zeroed just before the series, read
+             just after: draws as many as the CPU builds make, none on the
+             plain route), each leaf byte for byte its CPU build's; build
+             ms on the card (first and median of 3) and on the CPU. The
+             peak device bytes a streamed load of the sharded group's
+             model adds, whole and as shard 0 of 2.
 10. sharded — the sharded solve (parallel/sharded_solver.py), every
              shard on this card, one thread each. First each column
              reduction's partial route at C bf16[131072, 1024] on an 8 x 1
@@ -181,8 +197,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 12. runtime_mesh — the model runtime across a mesh of 8 shards, every
              shard on this card with one worker thread each (as phase
-             sharded); no custom kernel runs here (the launch counters are
-             zeroed before it and read after: all 0). (a) Ring attention
+             sharded); the one custom kernel here is the loads' weight
+             draw (the launch counters are zeroed before it and read
+             after). (a) Ring attention
              (parallel/ring_attention.py) at [1, 2, 128, 8], [2, 4, 128, 32]
              and [1, 4, 8192, 32], causal and not, f32 and bf16: against
              reference_attention on the card (f32 2e-5, bf16 3e-2, TF32
@@ -282,8 +299,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the request served where that copy landed unless its load or
              forward gave up, no copy loaded off the card. Prints latency by
              path (local hit, forwarded, miss with load, after the drain),
-             loads, load ms, evictions, batch sizes, the plan's decisions
-             and the leader steps' stages.
+             loads, load ms (the pods' store loads also by spec),
+             evictions, batch sizes, the plan's decisions and the leader
+             steps' stages; launches over the phase up to quiescence (the
+             weight draws of the pods' loads included, the reference
+             store's taken off).
 
 15. server — the serving pods over real localhost gRPC on the card, wired
              as the reference launcher wires them (serving/main.py): three
@@ -329,7 +349,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              holds the model; the native splicer built and agreed with
              its Python path on 200 seeded messages (the runtime's
              payload is raw tensor bytes, with no id field for the
-             in-body path); under 150 s. One server_stage line per stage.
+             in-body path); under 150 s. The pods' store load ms by
+             spec. One server_stage line per stage.
 16. cluster — launcher pods as separate processes on the card: the
              port's mesh:// KV server (kv/service.py, 64 workers) in this
              process, and three children, each ``cluster_pod`` (the
@@ -343,10 +364,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              the pods' endpoints; a non-leader (by its ***STATE*** dump)
              drains on SIGTERM while 120 more Predicts go to the
              survivors, then each of its models once at a survivor; the
-             survivors stop on SIGTERM. Each child prints, after main
-             returns, its launch counters, devices, peak device memory,
-             its reaper steps (launches, the published plan's generation
-             and digest) and the plans its strategy held. Then two pods
+             survivors stop on SIGTERM, the leader last. Each child
+             prints, after main returns, its launch counters, devices,
+             peak device memory, its reaper steps (launches, the
+             published plan's generation and digest), the plans its
+             strategy held and its election's transitions. Then two pods
              each over the port's etcd v3 wire server and its ZooKeeper
              wire server, side by side: 3 models, 30 Predicts, SIGTERM.
              Gates: every pod ready (spawn to READY timed), every pod's
@@ -357,11 +379,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
              answer within MODEL_TOL of a direct TorchModelStore predict
              here; two plan generations published (read from the KV) and
              at least two ticks each adopted, byte for byte, by all three
-             pods; every published tick launched lse_sinkhorn_step,
+             pods; one pod was leader all through, and it alone
+             published; every published tick launched lse_sinkhorn_step,
              row_lse_partial and implied_load; the drained pod exits 0
              and no request fails; at quiescence the registry read over
              RemoteKV equals the live pods' caches; every pod exits 0;
-             under 150 s. One cluster_stage line per stage.
+             under 150 s. Every pod's store load ms by spec. One
+             cluster_stage line per stage.
 17. sim    — the port's simulator (modelmesh_tpu_torch/sim/) on the
              card's host, in child processes through its entry points; it
              takes no device and launches no kernel (the launch counters
@@ -469,13 +493,20 @@ OPS_PER_ELEMENT = {"select_candidates": 10, "masked_row_min": 10,
                    "masked_col_matvec": 2, "masked_sinkhorn_step": 2,
                    "row_lse_partial": 6, "col_lse_partial": 6,
                    "lse_sinkhorn_step": 12, "implied_load": 2,
-                   "threefry_gumbel": 7}
+                   "threefry_gumbel": 7, "threefry_normal": 0}
 # 32-bit integer operations per element. The selection key's hash (10).
 # The threefry draw: 20 rounds of add, rotate, xor (60), 6 key injections
 # of 2 adds and the counters' split (14), the XOR of the two words (1), the
-# uniform's shift and or (2).
+# uniform's shift and or (2); the bf16 normal the table index's shift and
+# mask instead (2), and a table read from shared memory.
 INT32_OPS_PER_ELEMENT = {"select_candidates": 10, "masked_row_min": 10,
-                         "threefry_gumbel": 77}
+                         "threefry_gumbel": 77, "threefry_normal": 77}
+# Of the threefry draw's 77, the 45 rotates, XORs and shifts issue on the
+# INT32 lanes alone; its 32 adds may also issue on the FMA lanes (as
+# IMAD), 64 more a SM. So its integer time is the larger of the 45 over
+# the INT32 rate and the 77 over twice it. (All 77 on the INT32 lanes is
+# no bound: the normal draw ran faster than that on an H100.)
+INT32_ALU_OPS_PER_ELEMENT = {"threefry_gumbel": 45, "threefry_normal": 45}
 OPS_PER_CANDIDATE = {"masked_row_matvec": 5, "masked_col_matvec": 5,
                      "masked_sinkhorn_step": 7}
 REPLACES = {
@@ -493,6 +524,11 @@ REPLACES = {
     "implied_load": "modelmesh_tpu/ops/auction.py:144",
     # XLA's threefry (jax.random.gumbel), not a Pallas kernel.
     "threefry_gumbel": "modelmesh_tpu/ops/auction.py:337",
+    # XLA's threefry (jax.random.normal of the model weights), not a Pallas
+    # kernel.
+    "threefry_normal": ("modelmesh_tpu/models/families.py:119, :140, "
+                        ":175, :187, :226, :227, :312, :316, :317; "
+                        "modelmesh_tpu/parallel/moe.py:43, :45, :47"),
 }
 SOURCES = {"masked_sparse": "modelmesh_tpu_torch/csrc/masked_sparse.cu",
            "lse": "modelmesh_tpu_torch/csrc/lse.cu",
@@ -522,6 +558,21 @@ LOAD_HOST_REPS = 200
 # shapes (and the card's bits against the CPU's at the first), and in
 # Gumbel values at the dense tier's [131072, 1024], where it is timed.
 THREEFRY_SHAPES = {"block": (4096, 1024), "ragged": RAGGED}
+# The weight draw (jax.random.normal): held bitwise against its plain
+# version in bf16 at the sharded group's parameter count as one draw (timed
+# there) and at 65,536 elements (every one of a bf16 uniform's 128 values),
+# in f32 at the MoE specs' router shapes and at 2**20 elements (timed
+# there); each flat draw also against the CPU's but the largest. Card
+# builds are timed over WEIGHT_BUILD_REPS after the held one.
+WEIGHT_DRAWS = {
+    "bf16_model": (torch.bfloat16, (25_497_600,)),
+    "bf16_all_values": (torch.bfloat16, (65536,)),
+    "f32_router_e8": (torch.float32, (128, 8)),
+    "f32_router_e16": (torch.float32, (64, 16)),
+    "f32_1m": (torch.float32, (1 << 20,)),
+}
+WEIGHT_DRAW_SEED = 11
+WEIGHT_BUILD_REPS = 3
 # The model runtime: each family at its default spec, and the longest
 # sequence the repo's tests serve; the fused groups' size; gRPC Predict
 # calls timed per model; dispatch rounds timed per group.
@@ -630,8 +681,11 @@ def bound(name: str, nbytes: int, elements: int, card: str,
     ops = (OPS_PER_ELEMENT[name] * elements
            + OPS_PER_CANDIDATE.get(name, 0) * candidates)
     int_ops = INT32_OPS_PER_ELEMENT.get(name, 0) * elements
-    ops_ms = max(ops / PEAK_F32_OPS_PER_S,
-                 int_ops / PEAK_INT32_OPS_PER_S) * 1e3
+    int_s = int_ops / PEAK_INT32_OPS_PER_S
+    if name in INT32_ALU_OPS_PER_ELEMENT:
+        int_s = max(INT32_ALU_OPS_PER_ELEMENT[name] * elements
+                    / PEAK_INT32_OPS_PER_S, int_s / 2)
+    ops_ms = max(ops / PEAK_F32_OPS_PER_S, int_s) * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes}
@@ -1710,12 +1764,86 @@ def churn(fleet) -> list:
 
 def all_launches() -> dict:
     return dict(load_ops().launches, **cuda_sparse.launches,
-                **cuda_lse.launches)
+                **cuda_lse.launches, **random_ops()[1].launches)
 
 
 def reset_all_launches() -> None:
-    for mod in (load_ops(), cuda_sparse, cuda_lse):
+    for mod in (load_ops(), cuda_sparse, cuda_lse, random_ops()[1]):
         mod.reset_launches()
+
+
+@contextlib.contextmanager
+def store_load_ms(skip=()):
+    """While open, every ``TorchModelStore.load`` and ``load_sharded`` in
+    this process that builds a model records its wall ms under the
+    model's path ("load": build, warm-up predict, install), and the parts
+    "build" (``build_model``) and "warm" (the warm-up predict) of it; the
+    stores in ``skip`` (a phase's reference store) are not recorded.
+    Yields {part: {path: [ms, ...]}}."""
+    from modelmesh_tpu_torch.models import server
+
+    times: dict = {"load": {}, "build": {}, "warm": {}}
+    lock = threading.Lock()
+    mine = threading.local()
+    store_cls = server.TorchModelStore
+    real = {name: getattr(store_cls, name)
+            for name in ("load", "load_sharded")}
+    real_build, real_warm = server.build_model, server._warm
+
+    def note(part: str, path: str, t: float) -> None:
+        with lock:
+            times[part].setdefault(path, []).append(
+                (time.perf_counter() - t) * 1e3)
+
+    def timed(fn):
+        @functools.wraps(fn)
+        def wrapper(self, model_id, model_type, model_path, *args, **kw):
+            counted = (self.get(model_id) is None
+                       and not any(self is s for s in skip))
+            mine.path = model_path if counted else None
+            t = time.perf_counter()
+            try:
+                out = fn(self, model_id, model_type, model_path, *args,
+                         **kw)
+            finally:
+                mine.path = None
+            if counted:
+                note("load", model_path, t)
+            return out
+        return wrapper
+
+    def build(model_id, model_type, model_path, *args, **kw):
+        t = time.perf_counter()
+        out = real_build(model_id, model_type, model_path, *args, **kw)
+        if getattr(mine, "path", None) is not None:
+            note("build", mine.path, t)
+        return out
+
+    def warm(model):
+        t = time.perf_counter()
+        real_warm(model)
+        if getattr(mine, "path", None) is not None:
+            note("warm", mine.path, t)
+
+    for name, fn in real.items():
+        setattr(store_cls, name, timed(fn))
+    server.build_model, server._warm = build, warm
+    try:
+        yield times
+    finally:
+        for name, fn in real.items():
+            setattr(store_cls, name, fn)
+        server.build_model, server._warm = real_build, real_warm
+
+
+def load_ms_by_spec(times: dict) -> dict:
+    """``store_load_ms``'s record by path: n, median and max of each
+    part."""
+    return {path: {part: {"n": len(times[part][path]),
+                          "median": float(np.median(times[part][path])),
+                          "max": float(np.max(times[part][path]))}
+                   for part in times if times[part].get(path)}
+            for path in sorted(times["load"])}
 
 
 def steady_cycle(strat, fleet, dev, dirty=None) -> dict:
@@ -2335,6 +2463,181 @@ def phase_threefry(dev, card: str, cols) -> dict:
     emit({"phase": "threefry", "card": card, "checked": checked,
           "threefry_gumbel": timed, "dense_solve": solve})
     return {"threefry_gumbel": timed, "launches": launches}
+
+
+def weight_stream_peak(dev, cpu_model, mtype: str, path: str) -> dict:
+    """The peak device bytes a streamed load of ``cpu_model`` adds on the
+    card, whole (``load_from_stream``) and as shard 0 of 2
+    (``load_shard_from_stream``: the sharded group's path), beside the
+    model's bytes. The skeleton is drawn on the card whole in both."""
+    ops = instance_ops()
+    from modelmesh_tpu_torch.runtime.spi import ModelInfo
+
+    src = ops.InProcessTorchLoader(capacity_bytes=1 << 36, device="cpu")
+    src.store.install("stream", cpu_model)
+    info = ModelInfo(mtype, path)
+    out = {"model_bytes": cpu_model.size_bytes}
+    for how in ("whole", "shard_0_of_2"):
+        if how == "whole":
+            chunks = list(src.export_weights("stream", cpu_model))
+        else:
+            cpu_model.shard_index, cpu_model.shard_count = 0, 2
+            chunks = list(src.export_shard_weights("stream", cpu_model))
+        dst = ops.InProcessTorchLoader(capacity_bytes=1 << 36, device=dev)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        if how == "whole":
+            loaded = dst.load_from_stream("stream", info, iter(chunks))
+        else:
+            loaded = dst.load_shard_from_stream("stream", info, 0, 2,
+                                                iter(chunks))
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        held = torch.cuda.memory_allocated(dev) - base
+        out[how] = {"peak_bytes": peak, "held_bytes": held,
+                    "peak_over_model": peak / cpu_model.size_bytes,
+                    "streamed_leaves": len({c.layer for c in chunks})}
+        dst.unload("stream")
+        del loaded, dst
+    return out
+
+
+def phase_weight_draw(dev, card: str) -> dict:
+    """The model weights drawn on the card: the normal kernel against its
+    plain version bitwise at WEIGHT_DRAWS (and against the CPU's), every
+    bf16 value reached; its time per launch at the model-sized bf16 draw
+    beside its bound, the plain version and torch.randn (other bits), and
+    in f32 at 2**20; every MODEL_SPECS, MOE_SPECS and INST_SHARDED build
+    on the card (launch counters zeroed just before the series, read just
+    after: no plain draw) byte for byte its CPU build, each timed; the
+    peak device bytes of a streamed load of the sharded group's model."""
+    prng, cuda_random = random_ops()
+    from modelmesh_tpu_torch.models import families as tf
+
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(WEIGHT_DRAW_SEED)
+    checked, plain = {}, {}
+    for tag, (dtype, shape) in WEIGHT_DRAWS.items():
+        got = cuda_random.normal(key, shape, dtype, dev)
+
+        def plain_draw(dtype=dtype, shape=shape, tag=tag):
+            plain[tag] = prng.normal(key, shape, dtype, device=dev)
+
+        plain_ms = time_ms(plain_draw, 1)
+        want = plain.pop(tag)
+        as_int = (torch.int16 if dtype == torch.bfloat16 else torch.int32)
+        rec = {"dtype": str(dtype).removeprefix("torch."),
+               "shape": list(shape), "plain_ms": plain_ms,
+               "differ": int((got.view(as_int) != want.view(as_int))
+                             .sum().item()),
+               "max_abs_err": max_abs(got.float(), want.float()),
+               "finite": bool(torch.isfinite(got).all().item()),
+               "distinct": (int(torch.unique(got).numel())
+                            if got.numel() <= 1 << 16 else None)}
+        check(same_bytes(got, want),
+              f"weight_draw {tag}: the kernel differs from the plain "
+              f"version in {rec['differ']} elements")
+        check(rec["finite"], f"weight_draw {tag}: non-finite draw")
+        if tag != "bf16_model":
+            cpu = prng.normal(key, shape, dtype, device="cpu")
+            rec["equal_to_cpu"] = same_bytes(got.cpu(), cpu)
+            check(rec["equal_to_cpu"],
+                  f"weight_draw {tag}: the card's draw differs from the "
+                  f"CPU's")
+        checked[tag] = rec
+        del got, want
+    check(checked["bf16_all_values"]["distinct"] == 128,
+          f"weight_draw: {checked['bf16_all_values']['distinct']} of 128 "
+          f"bf16 values reached")
+    dtype, shape = WEIGHT_DRAWS["bf16_model"]
+    n = math.prod(shape)
+    timed = {
+        "shape": list(shape), "dtype": "bfloat16",
+        "max_abs_err": checked["bf16_model"]["max_abs_err"],
+        "ms": time_ms(lambda: cuda_random.normal(key, shape, dtype, dev),
+                      KERNEL_REPS),
+        "plain_ms": checked["bf16_model"]["plain_ms"],
+        # One library draw of the same distribution (other bits).
+        "library_ms": time_ms(
+            lambda: torch.randn(shape, dtype=dtype, device=dev),
+            KERNEL_REPS),
+        **bound("threefry_normal", n * 2, n, card),
+    }
+    f32_shape = WEIGHT_DRAWS["f32_1m"][1]
+    timed_f32 = {
+        "shape": list(f32_shape), "dtype": "float32",
+        "ms": time_ms(lambda: cuda_random.normal(key, f32_shape,
+                                                 torch.float32, dev),
+                      KERNEL_REPS),
+        "plain_ms": checked["f32_1m"]["plain_ms"],
+        "library_ms": time_ms(lambda: torch.randn(f32_shape, device=dev),
+                              KERNEL_REPS),
+        "bytes": math.prod(f32_shape) * 4,
+    }
+    # Every spec built on the card once, the counters zeroed just before
+    # and read just after: the main path of the draw.
+    specs = MODEL_SPECS + MOE_SPECS + [INST_SHARDED]
+    torch.cuda.synchronize(dev)
+    cuda_random.reset_launches()
+    card_models, first_ms = {}, {}
+    for mtype, path in specs:
+        t = time.perf_counter()
+        card_models[path] = tf.build_model("weights", mtype, path,
+                                           device=dev)
+        torch.cuda.synchronize(dev)
+        first_ms[path] = (time.perf_counter() - t) * 1e3
+    launches = dict(cuda_random.launches)
+    plain_draws = dict(cuda_random.plain_draws)
+    check(plain_draws["threefry_normal"] == 0,
+          f"weight_draw: a card build drew on the host {plain_draws}")
+    check(launches["threefry_normal"] > 0
+          and launches["threefry_gumbel"] == launches["threefry_bits"] == 0,
+          f"weight_draw: card builds launched {launches}")
+    builds, cpu_models = {}, {}
+    for mtype, path in specs:
+        card_model = card_models.pop(path)
+        cuda_random.reset_launches()
+        t = time.perf_counter()
+        cpu_model = tf.build_model("weights", mtype, path, device="cpu")
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        card_leaves = tf.leaves(card_model.params)
+        differ = [i for i, (a, b) in enumerate(zip(
+            card_leaves, tf.leaves(cpu_model.params)))
+            if not same_bytes(a.cpu(), b)]
+        check(not differ, f"weight_draw {path}: card leaves {differ} "
+              f"differ from the CPU build's")
+        check({leaf.device.type for leaf in card_leaves} == {"cuda"},
+              f"weight_draw {path}: a leaf off the card")
+        draws = cuda_random.plain_draws["threefry_normal"]
+        del card_model, card_leaves
+        ms = []
+        for _ in range(WEIGHT_BUILD_REPS):
+            t = time.perf_counter()
+            tf.build_model("weights", mtype, path, device=dev)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t) * 1e3)
+        builds[path] = {
+            "params": sum(t.numel() for t in tf.leaves(cpu_model.params)),
+            "leaves": len(tf.leaves(cpu_model.params)),
+            "draws_per_build": draws, "equal_to_cpu": True,
+            "card_build_ms_first": first_ms[path],
+            "card_build_ms": summary(ms), "cpu_build_ms": cpu_ms}
+        if path == INST_SHARDED[1]:
+            cpu_models[path] = cpu_model
+    check(launches["threefry_normal"]
+          == sum(b["draws_per_build"] for b in builds.values()),
+          f"weight_draw: {launches['threefry_normal']} launches for "
+          f"{sum(b['draws_per_build'] for b in builds.values())} draws")
+    stream = weight_stream_peak(dev, cpu_models.pop(INST_SHARDED[1]),
+                                *INST_SHARDED)
+    emit({"phase": "weight_draw", "card": card, "checked": checked,
+          "threefry_normal": timed, "f32": timed_f32, "builds": builds,
+          "launches": launches, "plain_draws": plain_draws,
+          "stream_load_memory": stream,
+          "seconds": time.perf_counter() - t0})
+    return {"threefry_normal": timed, "launches": launches,
+            "builds": len(specs)}
 
 
 # The sharded phase: mesh shapes (mdl, inst), every shard on the one card,
@@ -3002,14 +3305,18 @@ def batch_on_card(dev) -> dict:
 def phase_models(dev, card: str) -> dict:
     """A model server answering requests on the card: the gRPC runtime per
     family, then the in-process loader's batching, fused dispatch and
-    weight streaming. No custom kernel runs here: the families' products
-    are PyTorch's (f32 without TF32, bf16), as the reference leaves them
-    to XLA."""
+    weight streaming. The one custom kernel here is the weight draw (each
+    load's, launch counters zeroed before the phase and read after): the
+    families' products are PyTorch's (f32 without TF32, bf16), as the
+    reference leaves them to XLA."""
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the f32 families would not be f32")
+    reset_all_launches()
     result = {"phase": "models", "card": card,
               "grpc": serve_families(dev, card),
               "in_process": batch_on_card(dev)}
+    result["launches_in_run"] = {k: v for k, v in all_launches().items()
+                                 if v}
     emit(result)
     return result
 
@@ -3138,8 +3445,8 @@ def mesh_ep(dev, card_meshes: dict) -> dict:
     n = card_meshes["exp"].size
     out = {}
     for tag, (d, ff, n_exp, tokens) in EP_SHAPES.items():
-        params = {k: v.to(dev) for k, v in moe.init_moe_params(
-            prng.PRNGKey(SEED + 60), d, ff, n_exp).items()}
+        params = moe.init_moe_params(prng.PRNGKey(SEED + 60), d, ff, n_exp,
+                                     device=dev)
         x = torch.randn((tokens, d), generator=torch.Generator().manual_seed(
             SEED + 61)).to(dev)
         fn = moe.make_expert_parallel_ffn(card_meshes["exp"], n_exp)
@@ -3897,10 +4204,12 @@ INST_SEED = 1414
 # transformer's (the same vocabulary and sequence).
 INST_SHARDED = ("transformer", "transformer://d=1024,heads=8,layers=2")
 INST_SHARDED_PAYLOAD = "transformer://"
-# The phase is host-bound: the families draw their weights on the host
-# (models/families.py), about 1.3 s a load under the traffic's threads. It
-# took 116.9-178.1 s on an H100 host (the slowest with its reference
-# answers drawn on 8 threads); the budget is 18% above the slowest.
+# The phase is host-bound (Python routing, the loads' host work under the
+# traffic's threads). While the families drew their weights on the host
+# (~1.6 s a load under those threads) it took 116.9-184.6 s on an H100
+# host; drawing them on the card, 34.9-62.6 s (NVIDIA H100 80GB HBM3,
+# 700.00 W; the two in one call: 180.0-184.6 s against 48.4-62.6 s). The
+# budget stays where the host draw put it.
 INST_BUDGET_S = 210.0
 INST_WAIT_S = 60.0
 
@@ -4263,21 +4572,22 @@ def instance_traffic(ops, pods, registry, payloads, models, entries,
 
 
 def instance_leader_step(ops, kv, pods, dev) -> dict:
-    """The reaper's plan step on the elected pod, launch counters zeroed
-    just before it; every live pod's follower adopts the published bytes."""
+    """The reaper's plan step on the elected pod, its launches the
+    counters' growth while it ran; every live pod's follower adopts the
+    published bytes."""
     live = [p for p in pods if p.alive]
     wait_until(lambda: sum(p.inst.is_leader for p in live) == 1,
                "one elected pod", INST_WAIT_S)
     leader = next(p for p in live if p.inst.is_leader)
     inst = leader.inst
     torch.cuda.synchronize(dev)
-    reset_all_launches()
+    before = all_launches()
     t = time.perf_counter()
     step = ops.reaper_plan_step(kv, INST_PREFIX, leader.strategy,
                                 inst.registry, inst.instances_view,
                                 inst.model_rpm)
     step_ms = (time.perf_counter() - t) * 1e3
-    launches = all_launches()
+    launches = {k: v - before.get(k, 0) for k, v in all_launches().items()}
     check(step.plan is not None,
           f"instance: the leader's step failed: {step.error!r}")
     published = kv.get(ops.plan_sync.plan_key(INST_PREFIX))
@@ -4507,11 +4817,27 @@ def phase_instance(dev, card: str) -> dict:
               predicted, "registry_built_bytes": built,
               "pod_capacity_bytes": capacity}
     ref = ops.TorchModelStore(1 << 36, device=dev)
+    # The reference store's draws (the sharded group's and the streamed
+    # copy's answers, both loaded with no traffic running) are not the
+    # path's: counted here and taken off the phase's launches.
+    _, cuda_random = random_ops()
+    ref_draws = [0]
+    ref_load = ref.load
+
+    def counted_ref_load(*args):
+        before = cuda_random.launches["threefry_normal"]
+        out = ref_load(*args)
+        ref_draws[0] += cuda_random.launches["threefry_normal"] - before
+        return out
+
+    ref.load = counted_ref_load
     kv = ops.InMemoryKV()
     log = RequestLog()
     transport = InstanceTransport(ops, log)
     pods: list = []
     launches: dict = {}
+    timing = contextlib.ExitStack()
+    pod_loads = timing.enter_context(store_load_ms(skip=(ref,)))
     try:
         for k in range(INST_PODS):
             pods.append(InstancePod(ops, kv, k, capacity, dev, transport))
@@ -4526,8 +4852,9 @@ def phase_instance(dev, card: str) -> dict:
         result["setup_s"] = time.perf_counter() - t0
         stage("setup")
         steps = {}
+        torch.cuda.synchronize(dev)
+        reset_all_launches()
         steps["before"] = instance_leader_step(ops, kv, pods, dev)
-        add_launches(launches, steps["before"]["launches"])
         stage("leader_before")
         result["sharded"] = instance_sharded(
             ops, pods, payloads[INST_SHARDED_PAYLOAD], ref, dev)
@@ -4537,7 +4864,6 @@ def phase_instance(dev, card: str) -> dict:
         def middle():
             # Launches counted while the step ran, the traffic's included.
             steps["middle"] = instance_leader_step(ops, kv, pods, dev)
-            add_launches(launches, steps["middle"]["launches"])
             stage("traffic_to_middle")
 
         t = time.perf_counter()
@@ -4582,6 +4908,12 @@ def phase_instance(dev, card: str) -> dict:
         stage("stream")
         result["quiesce"] = instance_quiesce(ops, pods)
         stage("quiesce")
+        # The path's launches: the leader steps', the loads' draws (the
+        # traffic's, the sharded group's, the burst's and the stream's).
+        launches = all_launches()
+        ref_on_path = ref_draws[0]
+        launches["threefry_normal"] -= ref_on_path
+        launches = {k: v for k, v in launches.items() if v}
         # Gates on the answers: every request answered, each answer the
         # reference store's predict of the same model and payload.
         errors = [r for r in rows if r["error"]]
@@ -4590,9 +4922,9 @@ def phase_instance(dev, card: str) -> dict:
         specs = dict(registry)
 
         def reference(mid):
-            # One model at a time: the weights are drawn on the host, and
-            # threads drawing at once take longer (on an H100 host, 42.6 s
-            # on 8 threads against 24.1 s on one).
+            # One model at a time. Drawn on the card the stage takes
+            # 2.1-2.5 s (NVIDIA H100 80GB HBM3, 700.00 W); drawn on the
+            # host it took 24.1-26.3 s, and 42.6 s on 8 threads.
             mtype, path = specs[mid]
             ref.load(mid, mtype, path)
             try:
@@ -4659,6 +4991,9 @@ def phase_instance(dev, card: str) -> dict:
                          "p99": float(np.percentile(load_ms, 99)),
                          "max": float(np.max(load_ms))}
                         if load_ms else None),
+            # The pods' store loads (build, warm-up, install) by spec.
+            "load_ms_by_spec": load_ms_by_spec(pod_loads),
+            "reference_draws_taken_off": ref_on_path,
             "evictions": counts.get("EVICT_COUNT", 0),
             "forwards": counts.get("INVOKE_FORWARD_COUNT", 0),
             "load_sources": {k: counts.get(k, 0) for k in (
@@ -4682,6 +5017,7 @@ def phase_instance(dev, card: str) -> dict:
                          "device_idle_share": 1.0 - busy / window_ms},
         })
     finally:
+        timing.close()
         for p in pods:
             if p.alive:
                 p.close()
@@ -5103,6 +5439,8 @@ def phase_server(dev, card: str) -> dict:
         return step
 
     ops.tasks_mod.reaper_plan_step = recorded_step
+    timing = contextlib.ExitStack()
+    pod_loads = timing.enter_context(store_load_ms(skip=(ref,)))
     try:
         for k in range(SERVER_PODS):
             pods.append(ServerPod(ops, kv, k, capacity, dev, channels,
@@ -5193,8 +5531,10 @@ def phase_server(dev, card: str) -> dict:
         asc = leader.tasks.autoscaler
 
         def scaled():
+            # Only the burned class's models count (another model's up,
+            # as a vmodel target's, is no answer to the burn).
             ups = [d for d in list(asc.decisions)
-                   if d["kind"] == "autoscale-up"]
+                   if d["kind"] == "autoscale-up" and d["model"] in copies0]
             return ups and any(
                 leader.inst.registry.get(d["model"]).copy_count
                 > copies0[d["model"]] for d in ups)
@@ -5350,11 +5690,14 @@ def phase_server(dev, card: str) -> dict:
             "payloads": kinds,
             "reaper_ticks": len(ticks), "published_ticks": len(published),
             "ticks": published[:4],
+            # The pods' store loads (build, warm-up, install) by spec.
+            "load_ms_by_spec": load_ms_by_spec(pod_loads),
             "task_ticks": {p.iid: {n: len(v) for n, v in
                                    p.tasks.tick_times.items()}
                            for p in pods},
         })
     finally:
+        timing.close()
         ops.tasks_mod.reaper_plan_step = real_step
         for p in pods:
             p.close()
@@ -5421,19 +5764,21 @@ def cluster_pod(argv) -> int:
     ``main(argv)`` (``modelmesh_tpu_torch/serving/main.py``) with the
     phase's task cadences (CLUSTER_TASKS), recording each reaper step its
     BackgroundTasks take (launches, the published plan's generation and
-    digest) and each plan its strategy holds. After ``main`` returns on
-    SIGTERM it prints one JSON line: the pod's launch counters, its
-    devices and peak device memory, its ticks and plans. Run as
+    digest), each plan its strategy holds and each turn of its election.
+    After ``main`` returns on SIGTERM it prints one JSON line: the pod's
+    launch counters, its devices and peak device memory, its ticks, plans
+    and leader transitions. Run as
     ``python3 -c "$CLUSTER_POD_CODE" <launcher arguments>``. A fatal
     signal dumps every thread's stack to stderr."""
     import faulthandler
 
     from modelmesh_tpu_torch.models import server as model_server
     from modelmesh_tpu_torch.placement import plan_sync, torch_engine
+    from modelmesh_tpu_torch.serving import instance as instance_mod
     from modelmesh_tpu_torch.serving import main as launcher
     from modelmesh_tpu_torch.serving import tasks as tasks_mod
 
-    stores, strategies, ticks, plans = [], [], [], []
+    stores, strategies, ticks, plans, turns = [], [], [], [], []
 
     def captured(cls, into):
         real = cls.__init__
@@ -5473,8 +5818,16 @@ def cluster_pod(argv) -> int:
         ticks.append(rec)
         return step
     tasks_mod.reaper_plan_step = recorded_step
+    real_turn = instance_mod.ModelMeshInstance._on_leader_change
+
+    def recorded_turn(self, is_leader):
+        turns.append((time.time(), bool(is_leader)))
+        real_turn(self, is_leader)
+    instance_mod.ModelMeshInstance._on_leader_change = recorded_turn
     faulthandler.enable()
     done = threading.Event()
+    timing = contextlib.ExitStack()
+    loads = timing.enter_context(store_load_ms())
 
     def watch_plans():
         last = None
@@ -5489,6 +5842,7 @@ def cluster_pod(argv) -> int:
         launcher.main(argv)
     finally:
         done.set()
+        timing.close()
     devices = [s.device for s in stores] + [s.device for s in strategies]
     cuda_dev = next((d for d in devices if d.type == "cuda"), None)
     emit({"pod": argv[argv.index("--instance-id") + 1], "pid": os.getpid(),
@@ -5496,7 +5850,8 @@ def cluster_pod(argv) -> int:
           "strategy_devices": [str(s.device) for s in strategies],
           "max_memory_allocated": (torch.cuda.max_memory_allocated(cuda_dev)
                                    if cuda_dev is not None else 0),
-          "launches": all_launches(), "ticks": ticks, "plans": plans})
+          "launches": all_launches(), "ticks": ticks, "plans": plans,
+          "leader_turns": turns, "load_ms": loads})
     return 0
 
 
@@ -5620,6 +5975,27 @@ def cluster_registry_matches(ops, kv, pods) -> list:
             bad.append((mid, sorted(holders),
                         sorted(cached.get(mid, set()))))
     return bad
+
+
+def cluster_stop_order(survivors: list, leader) -> list:
+    """The survivors in the order they are stopped: the leader last. A
+    follower that outlived the leader would be elected and publish its own
+    first plan, generation 1 again (the reference's rule; phase plan_loop
+    holds that handover), and cluster_adoption, which knows a plan by its
+    generation, would take it for other bytes under a published one."""
+    return [p for p in survivors if p is not leader] + [leader]
+
+
+def cluster_leadership(results: dict, leader: str) -> None:
+    """One leader all through: no pod but ``leader`` was ever elected, and
+    every published tick is its own."""
+    elected = sorted(pod for pod, r in results.items()
+                     if any(on for _, on in r["leader_turns"]))
+    publishers = sorted({pod for pod, r in results.items()
+                         for t in r["ticks"] if t["published"]})
+    check(elected == [leader] and publishers == [leader],
+          f"cluster: leadership moved: elected {elected}, published by "
+          f"{publishers}, leader {leader}")
 
 
 def cluster_adoption(results: dict, stopped: dict) -> dict:
@@ -5836,7 +6212,8 @@ def phase_cluster(dev, card: str) -> dict:
             check(False, f"cluster: registry and caches disagree: "
                   f"{cluster_registry_matches(ops, kv, pods)[:5]}")
         stage("quiesce")
-        rcs = {p.iid: p.terminate() for p in survivors}
+        rcs = {p.iid: p.terminate()
+               for p in cluster_stop_order(survivors, leaders[0])}
         rcs[drained.iid] = drain_rc
         check(all(rc == 0 for rc in rcs.values()),
               f"cluster: pods exited {rcs}")
@@ -5856,7 +6233,15 @@ def phase_cluster(dev, card: str) -> dict:
             + r["strategy_devices"]) and r["max_memory_allocated"] > 0,
             f"cluster: {pod} ran on {r['loader_devices']} / "
             f"{r['strategy_devices']}, peak {r['max_memory_allocated']} B")
+    # The election's turns and the published ticks, before their gates.
+    emit({"phase": "cluster_leadership", "leader": leaders[0].iid,
+          "stopped": stopped,
+          "turns": {pod: r["leader_turns"] for pod, r in results.items()},
+          "ticks": sorted((t["t"], pod, t["generation"], t["digest"])
+                          for pod, r in results.items()
+                          for t in r["ticks"] if t["published"])})
     published = cluster_adoption(results, stopped)
+    cluster_leadership(results, leaders[0].iid)
     everywhere = [t for t in published
                   if len(t["adopted_by"]) == CLUSTER_PODS]
     check(len(everywhere) >= 2,
@@ -5902,10 +6287,14 @@ def phase_cluster(dev, card: str) -> dict:
                           for pod in r["rcs"]}}
     stage("schemes")
     launches: dict = {}
+    loads: dict = {}
     for r in list(results.values()) + [
             x for s in passes.values() for x in s["results"].values()]:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
+        for part, by_path in r["load_ms"].items():
+            for path, ms in by_path.items():
+                loads.setdefault(part, {}).setdefault(path, []).extend(ms)
     ms = [r["ms"] for r in rows]
     result.update({
         "requests": len(rows),
@@ -5929,6 +6318,9 @@ def phase_cluster(dev, card: str) -> dict:
                            "median": float(np.median(delays)) * 1e3},
         "schemes": schemes,
         "launches_in_run": {k: v for k, v in launches.items() if v},
+        # Every pod's store loads (build, warm-up, install) by spec.
+        "load_ms_by_spec": load_ms_by_spec(
+            dict({"load": {}, "build": {}, "warm": {}}, **loads)),
         "stages_s": stages, "seconds": time.perf_counter() - t0,
     })
     emit(result)
@@ -6226,9 +6618,10 @@ def main() -> int:
     steady = phase_steady(dev, card)
     pipelined = phase_pipelined(dev, card)
     threefry = phase_threefry(dev, card, cols)
+    weight_draw = phase_weight_draw(dev, card)
     sharded = phase_sharded(dev, card, cols)
-    phase_models(dev, card)
-    phase_runtime_mesh(dev, card)
+    models = phase_models(dev, card)
+    runtime_mesh = phase_runtime_mesh(dev, card)
     plan_loop = phase_plan_loop(dev, card)
     instance = phase_instance(dev, card)
     server = phase_server(dev, card)
@@ -6282,6 +6675,12 @@ def main() -> int:
     threefry_entries = kernel_entries(
         {"threefry_gumbel": threefry["threefry_gumbel"]}, "threefry",
         threefry["launches"], {"threefry_gumbel": ("threefry", 1)})
+    # The weight draw: its launches are the card builds' of weight_draw,
+    # one build a spec; a "solve" there is a build.
+    threefry_entries += kernel_entries(
+        {"threefry_normal": weight_draw["threefry_normal"]}, "threefry",
+        weight_draw["launches"],
+        {"threefry_normal": ("weight_draw", weight_draw["builds"])})
     entries = (kernel_entries(kernels, "masked_sparse", sparse_launches,
                               sparse_cells)
                + lse_entries + load_entries + threefry_entries)
@@ -6293,6 +6692,10 @@ def main() -> int:
             entry["name"], 0)
         entry["sharded_launches"] = sharded["launches_in_run"].get(
             entry["name"], 0)
+        entry["models_launches"] = models["launches_in_run"].get(
+            entry["name"], 0)
+        entry["runtime_mesh_launches"] = runtime_mesh[
+            "kernel_launches_in_phase"].get(entry["name"], 0)
         entry["plan_loop_launches"] = plan_loop["launches_in_run"].get(
             entry["name"], 0)
         entry["instance_launches"] = instance["launches_in_run"].get(

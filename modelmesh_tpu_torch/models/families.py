@@ -3,10 +3,14 @@
 Port of ``modelmesh_tpu/models/families.py``: the same five families
 (mlp, linear, conv, embedding, transformer, and ``example`` for linear),
 built from the model path (``family://k=v,...``) with the same defaults,
-and the same initial weights byte for byte: they are drawn on the host
-with ``modelmesh_tpu_torch/random.py`` (JAX's threefry) from
-``crc32(model_id)`` (or the spec's ``seed``) and then moved to the model's
-device, so a load on the card holds what a load on the CPU holds.
+and the same initial weights byte for byte: ``jax.random.normal`` (JAX's
+threefry) from ``crc32(model_id)`` (or the spec's ``seed``), drawn on the
+model's device (``ops/cuda_random.py::normal``: the kernel on a card, the
+plain version in ``modelmesh_tpu_torch/random.py`` on the CPU), so a load
+on the card holds what a load on the CPU holds. Every scale after a draw
+runs where the draw lies with a divisor on that device too: PyTorch's
+CUDA division by a CPU scalar multiplies by its reciprocal, which the
+CPU's does not.
 
 Parameters are a plain tree of dicts and lists of tensors, shaped and
 typed as the reference's pytree: ``leaves`` walks it in
@@ -60,6 +64,7 @@ import torch.nn.functional as F
 
 from modelmesh_tpu_torch import random as prng
 from modelmesh_tpu_torch.device import resolve_device
+from modelmesh_tpu_torch.ops import cuda_random
 from modelmesh_tpu_torch.parallel.mesh import ShardedLeaf, local
 from modelmesh_tpu_torch.parallel.moe import (
     init_moe_params,
@@ -242,9 +247,9 @@ def _seed_from(spec: ModelSpec, model_id: str) -> int:
     return spec.params.get("seed", zlib.crc32(model_id.encode()))
 
 
-def _draw(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, bf16)``, drawn on the host."""
-    return prng.normal(key, shape, _BF16, device="cpu")
+def _draw(key: torch.Tensor, shape, device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, bf16)``, drawn on ``device``."""
+    return cuda_random.normal(key, shape, _BF16, device)
 
 
 # -- arithmetic with the reference's dtype promotion -------------------------
@@ -288,7 +293,7 @@ def _weak_scale(w: torch.Tensor, s: float) -> torch.Tensor:
 
 # -- families ----------------------------------------------------------------
 
-def build_mlp(spec: ModelSpec, model_id: str) -> ServableModel:
+def build_mlp(spec: ModelSpec, model_id: str, device) -> ServableModel:
     d_in = spec.params.get("in", 64)
     hidden = spec.params.get("hidden", 256)
     depth = spec.params.get("depth", 2)
@@ -298,8 +303,9 @@ def build_mlp(spec: ModelSpec, model_id: str) -> ServableModel:
     params = []
     for a, b in zip(dims[:-1], dims[1:]):
         key, k1 = prng.split(key)
-        w = _strong_scale(_draw(k1, (a, b)), a)
-        params.append({"w": w, "b": torch.zeros((b,), dtype=_BF16)})
+        w = _strong_scale(_draw(k1, (a, b), device), a)
+        params.append({"w": w, "b": torch.zeros((b,), dtype=_BF16,
+                                                device=device)})
 
     def apply(params, x):
         h = x.to(_BF16)
@@ -312,12 +318,12 @@ def build_mlp(spec: ModelSpec, model_id: str) -> ServableModel:
     return ServableModel(apply, params, (d_in,), np.float32)
 
 
-def build_linear(spec: ModelSpec, model_id: str) -> ServableModel:
+def build_linear(spec: ModelSpec, model_id: str, device) -> ServableModel:
     """Single dense layer — the smallest/cheapest family (density tests)."""
     d_in = spec.params.get("in", 32)
     d_out = spec.params.get("out", 8)
     key = prng.PRNGKey(_seed_from(spec, model_id))
-    params = {"w": _strong_scale(_draw(key, (d_in, d_out)), d_in)}
+    params = {"w": _strong_scale(_draw(key, (d_in, d_out), device), d_in)}
 
     def apply(params, x):
         return _mm(x.to(_BF16), params["w"]).to(_F32)
@@ -332,7 +338,7 @@ def _same_pad(size: int, stride: int, kernel: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def build_conv(spec: ModelSpec, model_id: str) -> ServableModel:
+def build_conv(spec: ModelSpec, model_id: str, device) -> ServableModel:
     """Small conv classifier: f32 image (NHWC) -> class logits. Weights
     HWIO in bf16, as the reference's; the conv runs NCHW (PyTorch's
     layout) with the weights permuted per call, and the head reads the
@@ -350,9 +356,9 @@ def build_conv(spec: ModelSpec, model_id: str) -> ServableModel:
         c_out = width << i
         key, k1 = prng.split(key)
         params["convs"].append({
-            "w": _weak_scale(_draw(k1, (3, 3, c_in, c_out)),
+            "w": _weak_scale(_draw(k1, (3, 3, c_in, c_out), device),
                              float(1.0 / np.sqrt(9 * c_in))),
-            "b": torch.zeros((c_out,), dtype=_BF16),
+            "b": torch.zeros((c_out,), dtype=_BF16, device=device),
         })
         c_in = c_out
     # SAME padding + stride 2 gives ceil(hw/2) per block.
@@ -361,7 +367,7 @@ def build_conv(spec: ModelSpec, model_id: str) -> ServableModel:
         final_hw = max(1, (final_hw + 1) // 2)
     key, k2 = prng.split(key)
     params["head"] = _weak_scale(
-        _draw(k2, (final_hw * final_hw * c_in, classes)),
+        _draw(k2, (final_hw * final_hw * c_in, classes), device),
         float(1.0 / np.sqrt(final_hw * final_hw * c_in)),
     )
 
@@ -380,7 +386,8 @@ def build_conv(spec: ModelSpec, model_id: str) -> ServableModel:
     return ServableModel(apply, params, (size, size, chans), np.float32)
 
 
-def build_embedding(spec: ModelSpec, model_id: str) -> ServableModel:
+def build_embedding(spec: ModelSpec, model_id: str,
+                    device) -> ServableModel:
     """Embedding-bag scorer: int32 id bag -> similarity logits. The
     reference's one-hot einsum is a gather here: each one-hot row holds a
     single 1.0, so the two are equal exactly."""
@@ -391,8 +398,8 @@ def build_embedding(spec: ModelSpec, model_id: str) -> ServableModel:
     key = prng.PRNGKey(_seed_from(spec, model_id))
     k1, k2 = prng.split(key)
     params = {
-        "table": _weak_scale(_draw(k1, (vocab, dim)), 0.05),
-        "items": _weak_scale(_draw(k2, (items, dim)), 0.05),
+        "table": _weak_scale(_draw(k1, (vocab, dim), device), 0.05),
+        "items": _weak_scale(_draw(k2, (items, dim), device), 0.05),
     }
 
     def apply(params, ids):
@@ -417,7 +424,7 @@ def _layer_norm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return a * b
 
 
-def build_transformer(spec: ModelSpec, model_id: str,
+def build_transformer(spec: ModelSpec, model_id: str, device,
                       devices=None) -> ServableModel:
     """Tiny causal transformer LM: int32 token payload -> next-token logits.
 
@@ -457,28 +464,30 @@ def build_transformer(spec: ModelSpec, model_id: str,
     key = prng.PRNGKey(_seed_from(spec, model_id))
 
     def dense(k, a, b):
-        # ``/ np.sqrt(a)``: a strong float64 scalar, so f32.
-        return (_draw(k, (a, b)).to(_F32)
-                / torch.tensor(np.sqrt(a), dtype=_F32))
+        # ``/ np.sqrt(a)``: a strong float64 scalar, so f32; divided on the
+        # draw's device (module docstring).
+        return (_draw(k, (a, b), device).to(_F32)
+                / torch.tensor(np.sqrt(a), dtype=_F32, device=device))
 
     keys = prng.split(key, 2 + 6 * n_layers)
     params = {
-        "embed": _weak_scale(_draw(keys[0], (vocab, d)), 0.02),
-        "pos": _weak_scale(_draw(keys[1], (seq, d)), 0.02),
+        "embed": _weak_scale(_draw(keys[0], (vocab, d), device), 0.02),
+        "pos": _weak_scale(_draw(keys[1], (seq, d), device), 0.02),
         "blocks": [],
     }
     for layer in range(n_layers):
         k = keys[2 + 6 * layer: 8 + 6 * layer]
         if n_experts:
-            ffn = {"moe": init_moe_params(k[2], d, 4 * d, n_experts)}
+            ffn = {"moe": init_moe_params(k[2], d, 4 * d, n_experts,
+                                          device=device)}
         else:
             ffn = {"up": dense(k[2], d, 4 * d), "down": dense(k[3], 4 * d, d)}
         params["blocks"].append({
             "qkv": dense(k[0], d, 3 * d),
             "proj": dense(k[1], d, d),
             **ffn,
-            "ln1": torch.ones((d,), dtype=_BF16),
-            "ln2": torch.ones((d,), dtype=_BF16),
+            "ln1": torch.ones((d,), dtype=_BF16, device=device),
+            "ln2": torch.ones((d,), dtype=_BF16, device=device),
         })
     scale = torch.tensor(np.sqrt(head_dim), dtype=_F32)
 
@@ -553,10 +562,11 @@ def fuse_key_for(spec: ModelSpec) -> str:
 
 def build_model(model_id: str, model_type: str, model_path: str,
                 device=None, devices=None) -> ServableModel:
-    """Build on the host, then move the parameters to ``device``
-    (``None``: ``cuda:0`` or raise). ``devices``: the devices the model
-    may span (``None``: ``[device]``), which the transformer's ``sp`` and
-    ``ep`` run over."""
+    """Build with every parameter drawn and made on ``device`` (``None``:
+    ``cuda:0`` or raise): on a CUDA device the weights come from the
+    threefry kernel and none is drawn on the host. ``devices``: the
+    devices the model may span (``None``: ``[device]``), which the
+    transformer's ``sp`` and ``ep`` run over."""
     device = resolve_device(device)
     devices = ([device] if devices is None
                else [torch.device(d) for d in devices])
@@ -567,9 +577,9 @@ def build_model(model_id: str, model_type: str, model_path: str,
             f"unknown model family {spec.family!r} "
             f"(known: {sorted(FAMILIES)})"
         )
-    model = (builder(spec, model_id, devices) if builder is build_transformer
-             else builder(spec, model_id))
-    model.params = map_tree(lambda t: t.to(device), model.params)
+    model = (builder(spec, model_id, device, devices)
+             if builder is build_transformer
+             else builder(spec, model_id, device))
     model.family = spec.family
     model.fuse_key = fuse_key_for(spec)
     # MoE routing couples the rows of a batch (capacity per token group);

@@ -696,18 +696,29 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
                             range(len(leaves(handle.params))))
 
     def _skeleton(self, model_id: str, info: ModelInfo) -> ServableModel:
+        """The deterministic build, drawn where the store's models live
+        (as the reference's ``build_model`` draws on its default
+        device)."""
         try:
             return build_model(model_id, info.model_type, info.model_path,
-                               device="cpu", devices=self.store.devices)
+                               device=self.store.device,
+                               devices=self.store.devices)
         except (ValueError, NotImplementedError) as e:
             raise ModelLoadException(str(e)) from e
 
     def _graft(self, model_id: str, skeleton: ServableModel,
                by_layer: dict, what: str):
         """The skeleton's parameters on this store's device, with each
-        leaf in ``by_layer`` replaced by its received bytes."""
+        leaf in ``by_layer`` replaced by its received bytes. The skeleton
+        gives its parameters up (``params`` is None after), so each drawn
+        leaf that a received one replaces is freed as it lands: the
+        device holds the model and one leaf more at most."""
+        drawn = leaves(skeleton.params)
+        shape = unflatten(skeleton.params, [None] * len(drawn))
+        skeleton.params = None
         out = []
-        for i, leaf in enumerate(leaves(skeleton.params)):
+        for i in range(len(drawn)):
+            leaf, drawn[i] = drawn[i], None
             if i in by_layer:
                 try:
                     leaf = leaf_from_bytes(b"".join(by_layer[i]), leaf)
@@ -716,14 +727,14 @@ class InProcessTorchLoader(ModelLoader[ServableModel]):
                         f"{model_id}: {what} {i}: {e} (corrupt stream)"
                     ) from e
             out.append(leaf.to(self.store.device))
-        return unflatten(skeleton.params, out)
+        return unflatten(shape, out)
 
     def load_from_stream(
         self, model_id: str, info: ModelInfo, chunks, partial_ready=None,
     ) -> LoadedModel[ServableModel]:
         """Materialize from a transfer stream: receive leaf bytes, then
-        graft them onto the deterministic architecture skeleton (built on
-        the host). A shape/size mismatch is a corrupt or mismatched
+        graft them onto the deterministic architecture skeleton (drawn on
+        the store's device). A shape/size mismatch is a corrupt or mismatched
         stream and fails the load. ``partial_ready`` is not armed: a
         model with missing layers cannot produce correct logits."""
         by_layer = _by_layer(chunks)

@@ -77,6 +77,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "threefry": {
         "mm_threefry": [_P, _U, _U, _L, _I, _P],
+        "mm_threefry_normal": [_P, _P, _U, _U, _L, _I, _P],
     },
 }
 

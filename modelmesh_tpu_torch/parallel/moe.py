@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from modelmesh_tpu_torch import random as prng
+from modelmesh_tpu_torch.ops import cuda_random
 from modelmesh_tpu_torch.parallel import mesh as mesh_mod
 
 EXPERT_AXIS = "exp"
@@ -44,18 +45,21 @@ _F32 = torch.float32
 
 
 def init_moe_params(key: torch.Tensor, d_model: int, d_ff: int,
-                    n_experts: int) -> dict:
+                    n_experts: int, *, device) -> dict:
     """Router f32 [d, E] (normal * 0.02), expert weights bf16 [E, d, ff]
-    and [E, ff, d] (normal / sqrt(fan-in)), drawn on the host from
-    ``split(key, 3)``. ``math.sqrt`` is a Python float, weak in JAX, so
-    the expert weights stay bf16 (divided by the bf16-rounded root)."""
+    and [E, ff, d] (normal / sqrt(fan-in)), drawn on ``device`` from
+    ``split(key, 3)`` (``ops/cuda_random.py::normal``: the kernel on a
+    card). ``math.sqrt`` is a Python float, weak in JAX, so the expert
+    weights stay bf16 (divided by the bf16-rounded root). The scales are
+    tensors on ``device``: PyTorch's CUDA division by a CPU scalar
+    multiplies by its reciprocal, which the CPU's does not."""
     kg, k1, k2 = prng.split(key, 3)
 
     def normal(k, shape, dtype):
-        return prng.normal(k, shape, dtype, device="cpu")
+        return cuda_random.normal(k, shape, dtype, device)
 
     def weak(v: float, dtype) -> torch.Tensor:
-        return torch.tensor(v, dtype=dtype)
+        return torch.tensor(v, dtype=dtype, device=device)
 
     return {
         "router": normal(kg, (d_model, n_experts), _F32) * weak(0.02, _F32),

@@ -164,8 +164,15 @@ def uniform(key: torch.Tensor, shape, dtype=torch.float32,
     (f32 or bf16)."""
     if dtype not in _FLOAT_LAYOUT:
         raise TypeError(f"uniform draws f32 or bf16 (got {dtype})")
+    bits = random_bits(key, _FLOAT_LAYOUT[dtype][0], shape, device)
+    return _uniform_of_bits(bits, dtype, minval, maxval)
+
+
+def _uniform_of_bits(bits: torch.Tensor, dtype, minval: float,
+                     maxval: float) -> torch.Tensor:
+    """``uniform``'s values from its random bits (8 for bf16, 32 for
+    f32)."""
     rng_bits, nmant, one_bits, int_dtype = _FLOAT_LAYOUT[dtype]
-    bits = random_bits(key, rng_bits, shape, device)
     floats = (((bits >> (rng_bits - nmant)) | one_bits).to(int_dtype)
               .view(dtype)) - torch.tensor(1.0, dtype=dtype)
     lo = torch.tensor(minval, dtype=dtype, device=floats.device)
@@ -248,9 +255,16 @@ def normal(key: torch.Tensor, shape, dtype=torch.float32, *,
     """``jax.random.normal`` in f32 or bf16."""
     if dtype not in _FLOAT_LAYOUT:
         raise TypeError(f"normal draws f32 or bf16 (got {dtype})")
+    bits = random_bits(key, _FLOAT_LAYOUT[dtype][0], shape, device)
+    return normal_of_bits(bits, dtype)
+
+
+def normal_of_bits(bits: torch.Tensor, dtype) -> torch.Tensor:
+    """``normal``'s values from its random bits (int64 values of the
+    draw's 8 bits for bf16, 32 for f32), on their device."""
     # nextafter(-1, 0) in the dtype: -(1 - eps / 2).
     lo = -(1.0 - torch.finfo(dtype).eps / 2)
-    u = uniform(key, shape, dtype, lo, 1.0, device=device)
+    u = _uniform_of_bits(bits, dtype, lo, 1.0)
     sqrt2 = torch.tensor(math.sqrt(2), dtype=dtype)
     if dtype == torch.bfloat16:
         return torch.erfinv(u.float()).to(torch.bfloat16) * sqrt2

@@ -47,7 +47,7 @@ def jax_mesh():
 
 
 def _params(seed):
-    return tmoe.init_moe_params(prng.PRNGKey(seed), D, FF, E)
+    return tmoe.init_moe_params(prng.PRNGKey(seed), D, FF, E, device="cpu")
 
 
 def _tokens(seed, n=256):

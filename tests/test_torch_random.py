@@ -13,7 +13,8 @@ Within a tolerance: ``gumbel`` (PyTorch's ``log`` against XLA's: 2e-4,
 the tolerance of the port's hash Gumbel tests). The kernel
 (``ops/cuda_random.py``) is held bitwise against this plain version on
 the card by ``chip_smoke.py``; here its wrapper takes the plain route for
-the CPU and refuses other devices.
+the CPU (the weight draw's ``normal`` too, bitwise ``jax.random.normal``)
+and refuses other devices.
 """
 
 import zlib
@@ -189,6 +190,22 @@ def test_wrapper_takes_the_plain_route_on_the_cpu():
         prng.random_bits(key, 32, (9, 5), "cpu").numpy(),
     )
     assert all(v == 0 for v in cuda_random.launches.values())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES + [(256, 33)])
+@pytest.mark.parametrize("dtype,tdtype", [(jnp.float32, torch.float32),
+                                          (jnp.bfloat16, torch.bfloat16)])
+def test_wrapper_normal_on_the_cpu_is_jax_s(seed, shape, dtype, tdtype):
+    """The weight draw's wrapper on the CPU: its plain version, bitwise
+    ``jax.random.normal``, and no launch."""
+    cuda_random.reset_launches()
+    want = jax.random.normal(jax.random.PRNGKey(seed), shape, dtype)
+    got = cuda_random.normal(prng.PRNGKey(seed), shape, tdtype, "cpu")
+    assert got.dtype == tdtype and got.device.type == "cpu"
+    np.testing.assert_array_equal(_np(got), _jnp(want))
+    assert cuda_random.launches["threefry_normal"] == 0
+    assert cuda_random.plain_draws["threefry_normal"] == 1
 
 
 def test_wrapper_refuses_a_device_without_a_kernel():
