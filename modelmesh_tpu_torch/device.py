@@ -10,11 +10,13 @@ The solve's convergence gates are Python control flow on 0-d device
 tensors, and each decision is a host sync (the stream drains before the
 value reaches Python). ``item`` and ``finish_readback`` are the only ways
 the solve path moves a value to the host, and ``host_syncs`` counts them
-so a run can report syncs per solve. The count is kept under a lock: the
+so a run can report syncs per solve; ``host_sync_s`` sums the wall time
+the host spent blocked in them. Both are kept under a lock: the
 shards of a sharded solve (``parallel/sharded_solver.py``) run in threads
 of their own and each reads every gate on its own device, so a sharded
 solve counts one sync per gate read per shard (a mesh of 8 shards, 8 for
-each gate), plus the one readback.
+each gate), plus the one readback. A gate read is the refresh span
+``gate`` (``observability/tracing.py``).
 
 A readback is split in two: ``start_readback`` enqueues the copy behind
 the work already on the tensor's stream and returns at once, and
@@ -25,20 +27,25 @@ two (the next solve) is not waited for.
 from __future__ import annotations
 
 import threading
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
+from modelmesh_tpu_torch.observability import tracing
+
 # Host syncs made through item()/readback() since the process started (or
-# the caller last zeroed it).
+# the caller last zeroed it), and the seconds the host was blocked in them.
 host_syncs = 0  #: guarded-by: _sync_lock
+host_sync_s = 0.0  #: guarded-by: _sync_lock
 _sync_lock = threading.Lock()
 
 
-def _count_sync() -> None:
-    global host_syncs
+def _count_sync(waited_s: float) -> None:
+    global host_syncs, host_sync_s
     with _sync_lock:
         host_syncs += 1
+        host_sync_s += waited_s
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -91,8 +98,11 @@ def resolve_kernel_impl(knob: str, value: str, device) -> str:
 
 def item(t: torch.Tensor):
     """``t.item()``, counted as one host sync."""
-    _count_sync()
-    return t.item()
+    t0 = time.perf_counter()
+    with tracing.refresh_span("gate"):
+        value = t.item()
+    _count_sync(time.perf_counter() - t0)
+    return value
 
 
 class Readback(NamedTuple):
@@ -112,7 +122,9 @@ def start_readback(t: torch.Tensor) -> Readback:
         return Readback(t, None)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
+    # A timing event: the refresh spans read the solve's device time up
+    # to it.
+    done = torch.cuda.Event(enable_timing=True)
     done.record(torch.cuda.current_stream(t.device))
     return Readback(host, done)
 
@@ -120,7 +132,8 @@ def start_readback(t: torch.Tensor) -> Readback:
 def finish_readback(rb: Readback) -> torch.Tensor:
     """Wait for ``rb``'s copy (and only for the work enqueued before it),
     counted as one host sync; the host tensor."""
-    _count_sync()
+    t0 = time.perf_counter()
     if rb.done is not None:
         rb.done.synchronize()
+    _count_sync(time.perf_counter() - t0)
     return rb.host

@@ -35,13 +35,20 @@ would be a >50% tax. Minted roots are head-sampled 1-in-``sample_n``
 request is traced end-to-end across every hop it touches. A disabled or
 not-sampled trace leaves no context: ``span`` is a no-op and no headers
 are attached.
+
+The placement refresh has span records of its own (``RefreshSpans``, at
+the end of this file): the leader's refresh is background work that no
+request trace covers, and its spans go where the solve's device work is
+measured, into ``plan.stats`` and onto a ``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import itertools
 import threading
+import time
 import uuid
 from typing import Optional
 
@@ -312,3 +319,196 @@ def outgoing_headers(headers: list[tuple[str, str]]) -> list[tuple[str, str]]:
     if t.stack:
         out.append((SPAN_HEADER, t.stack[-1]))
     return out
+
+
+# -- placement refresh spans -------------------------------------------------
+
+REFRESH_SPAN = "mm.refresh"
+
+# The device layers a solve marks on its stream, in the order it runs
+# them: each ``<layer>_device_ms`` runs from the previous mark (the
+# dispatch's start for the first) to the layer's own.
+DEVICE_LAYERS = ("cost", "transport", "auction")
+
+_refresh: contextvars.ContextVar[Optional["RefreshSpans"]] = (
+    contextvars.ContextVar("mm_refresh_spans", default=None)
+)
+
+
+class RefreshSpans:
+    """One placement refresh's spans, marks and counts, resolved into its
+    plan's ``stats`` after the solve's readback wait (``resolve``).
+
+    The refresh (``TorchPlacementStrategy.refresh``, the pipelined
+    refresher's ``submit``, ``solve_plan``) makes the record current
+    (``current()``) while its snapshot and dispatch run; ``PendingSolve``
+    carries it to ``finalize_plan``. A span (``refresh_span`` on the
+    current record, ``record_span`` on a given one):
+
+    - adds its host time (``time.perf_counter``) to ``host_ms[name]``;
+    - only while a ``torch.profiler`` records (its flag, read once a
+      span), opens a ``record_function`` range ``mm.refresh.<name>``, on
+      the clock of the device operations in the trace;
+    - with ``mark=True``, ends a device layer (``mark``).
+
+    Marks are taken on the solve's device (``begin_solve``): a timing
+    ``torch.cuda.Event`` on the current stream of a CUDA device, read
+    with ``elapsed_time`` only once the readback's own event has
+    completed (no host sync); the host clock on the CPU, where the solve
+    is synchronous and a layer's interval is its host interval; none on
+    a mesh (``device=None``)."""
+
+    __slots__ = ("host_ms", "counts", "marks", "device", "gate_wait_ms",
+                 "_profiler")
+
+    def __init__(self):
+        from torch.autograd import profiler
+
+        self._profiler = profiler
+        self.host_ms: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+        self.marks: dict[str, object] = {}
+        self.device = None
+        # Host time blocked at the dispatch's gates (``device.item``).
+        self.gate_wait_ms: Optional[float] = None
+
+    def current(self) -> "_CurrentRefresh":
+        """Context manager: this record is current (``refresh_span`` and
+        ``refresh_count`` reach it), under a root range ``mm.refresh``
+        while a profiler records."""
+        return _CurrentRefresh(self)
+
+    def begin_solve(self, device) -> None:
+        """A dispatch starts on ``device`` (None: a mesh, no device
+        marks). An earlier dispatch's marks go: a refresh whose
+        incremental re-solve fell back to a full one reports the last."""
+        import torch
+
+        self.device = None if device is None else torch.device(device)
+        self.marks = {}
+        self.mark("start")
+
+    def mark(self, name: str, event=None) -> None:
+        """Note where ``name`` ends on the solve's stream: ``event`` (a
+        timing CUDA event already recorded there) or a new one."""
+        dev = self.device
+        if dev is None:
+            return
+        if dev.type != "cuda":
+            self.marks[name] = time.perf_counter()
+            return
+        if event is None:
+            import torch
+
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(torch.cuda.current_stream(dev))
+        self.marks[name] = event
+
+    def resolve(self, stats: dict) -> None:
+        """Write the record into ``stats``: ``rpm_read_ms``, the counts,
+        ``gate_wait_ms``, and from the marks ``<layer>_device_ms`` and
+        ``solve_device_ms`` (dispatch start to the readback's copy). Call
+        after the readback wait: every mark has completed by then."""
+        if "rpm" in self.host_ms:
+            stats["rpm_read_ms"] = self.host_ms["rpm"]
+        stats.update(self.counts)
+        if self.gate_wait_ms is not None:
+            stats["gate_wait_ms"] = self.gate_wait_ms
+        marks = self.marks
+        start = marks.get("start")
+        if start is None or "done" not in marks:
+            return
+        cuda = self.device.type == "cuda"
+
+        def since(mark):
+            if cuda:
+                return start.elapsed_time(mark)
+            return (mark - start) * 1e3
+
+        last = 0.0
+        for layer in DEVICE_LAYERS:
+            if layer in marks:
+                at = since(marks[layer])
+                stats[f"{layer}_device_ms"] = at - last
+                last = at
+        stats["solve_device_ms"] = since(marks["done"])
+
+
+class _CurrentRefresh:
+    __slots__ = ("rec", "token", "range")
+
+    def __init__(self, rec: RefreshSpans):
+        self.rec = rec
+
+    def __enter__(self) -> RefreshSpans:
+        rec = self.rec
+        self.token = _refresh.set(rec)
+        self.range = None
+        if rec._profiler._is_profiler_enabled:
+            self.range = rec._profiler.record_function(REFRESH_SPAN)
+            self.range.__enter__()
+        return rec
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        _refresh.reset(self.token)
+        return False
+
+
+class _RefreshSpan:
+    """One span of a refresh (see ``RefreshSpans``)."""
+
+    __slots__ = ("rec", "name", "mark", "range", "t0")
+
+    def __init__(self, rec: RefreshSpans, name: str, mark: bool):
+        self.rec = rec
+        self.name = name
+        self.mark = mark
+
+    def __enter__(self) -> None:
+        rec = self.rec
+        self.range = None
+        if rec._profiler._is_profiler_enabled:
+            self.range = rec._profiler.record_function(
+                f"{REFRESH_SPAN}.{self.name}")
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        rec = self.rec
+        ms = (time.perf_counter() - self.t0) * 1e3
+        rec.host_ms[self.name] = rec.host_ms.get(self.name, 0.0) + ms
+        if self.mark and exc_type is None:
+            rec.mark(self.name)
+        if self.range is not None:
+            self.range.__exit__(exc_type, exc, tb)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def current_refresh() -> Optional[RefreshSpans]:
+    return _refresh.get()
+
+
+def record_span(rec: Optional[RefreshSpans], name: str, mark: bool = False):
+    """A span of ``rec``; a no-op without one."""
+    if rec is None:
+        return _NO_SPAN
+    return _RefreshSpan(rec, name, mark)
+
+
+def refresh_span(name: str, mark: bool = False):
+    """A span of the current refresh; with none current (the ops called
+    directly) one contextvar read and nothing more."""
+    return record_span(_refresh.get(), name, mark)
+
+
+def refresh_count(name: str, n: int) -> None:
+    """Add ``n`` to the current refresh's count ``name`` (none current:
+    nothing)."""
+    rec = _refresh.get()
+    if rec is not None:
+        rec.counts[name] = rec.counts.get(name, 0) + int(n)

@@ -5,7 +5,10 @@ runs the sparse top-K pipeline (``ops/sparse.py``); any other runs the
 dense tier: cost -> full-width Sinkhorn (the LSE kernels) -> plan logits
 -> dense auction. The solve runs on the device its problem's tensors are
 on. ``solve_placement_incremental`` re-selects a few rows against a
-previous solve's frozen column state.
+previous solve's frozen column state. Inside a placement refresh each
+layer is a refresh span that marks its end on the device
+(``observability/tracing.py``): cost, transport (with the plan logits),
+auction.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from modelmesh_tpu_torch.observability import tracing
 from modelmesh_tpu_torch.ops import costs as costs_mod
 from modelmesh_tpu_torch.ops.auction import (
     MAX_COPIES,
@@ -106,28 +110,31 @@ def _solve_dense(problem, config: SolveConfig, seed: int, init) -> Placement:
         noise_impl=config.noise_impl, final_select=config.final_select,
         iters=config.auction_iters, load_impl=config.load_impl,
     )
-    C = costs_mod.assemble_cost(
-        problem, weights=config.weights, dtype=config.dtype
-    )
-    # Copies clamped to what rounding can place, before the marginals:
-    # otherwise the prior reserves phantom capacity.
-    copies = torch.clamp_max(problem.copies, MAX_COPIES)
-    row_mass = problem.sizes * copies.to(torch.float32)
-    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
-    sk = sinkhorn(
-        C, row_mass, free, eps=config.eps, iters=config.sinkhorn_iters,
-        lse_impl=config.lse_impl, g0=None if init is None else init.g0,
-        tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
-    )
-    logits = plan_logits(C, sk.f, sk.g, config.eps)
-    res = auction(
-        logits, problem.sizes, copies, free, problem.feasible, seed,
-        iters=config.auction_iters, eta=config.eta, tau=config.tau,
-        load_impl=config.load_impl, noise_impl=config.noise_impl,
-        final_select=config.final_select,
-        stall_tol=config.auction_stall_tol,
-        price0=None if init is None else init.price0,
-    )
+    with tracing.refresh_span("cost", mark=True):
+        C = costs_mod.assemble_cost(
+            problem, weights=config.weights, dtype=config.dtype
+        )
+    with tracing.refresh_span("transport", mark=True):
+        # Copies clamped to what rounding can place, before the marginals:
+        # otherwise the prior reserves phantom capacity.
+        copies = torch.clamp_max(problem.copies, MAX_COPIES)
+        row_mass = problem.sizes * copies.to(torch.float32)
+        free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+        sk = sinkhorn(
+            C, row_mass, free, eps=config.eps, iters=config.sinkhorn_iters,
+            lse_impl=config.lse_impl, g0=None if init is None else init.g0,
+            tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
+        )
+        logits = plan_logits(C, sk.f, sk.g, config.eps)
+    with tracing.refresh_span("auction", mark=True):
+        res = auction(
+            logits, problem.sizes, copies, free, problem.feasible, seed,
+            iters=config.auction_iters, eta=config.eta, tau=config.tau,
+            load_impl=config.load_impl, noise_impl=config.noise_impl,
+            final_select=config.final_select,
+            stall_tol=config.auction_stall_tol,
+            price0=None if init is None else init.price0,
+        )
     return Placement(
         indices=res.indices, valid=res.valid, load=res.load,
         overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,

@@ -19,6 +19,13 @@ a few rows re-selected against the frozen column state of the last one.
 Rounding noise is the positional hash-Gumbel draw, a pure function of
 (row, col, seed), so the gathered and full-width evaluations agree.
 
+Inside a placement refresh the layers are refresh spans
+(``observability/tracing.py``): cost, select (the gather), transport and
+auction, each but select marking its end on the device, so the gather's
+device time counts in the transport's; the incremental re-solve's are
+cost, transport (row potentials and logits) and auction (the
+re-selection, merge and load).
+
 The sharded solve (``parallel/sharded_solver.py``) runs these functions on
 each block of rows: ``row_offset`` makes a block draw the selection key
 and the rounding noise of the same rows of the whole problem, and
@@ -34,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from modelmesh_tpu_torch import device as device_mod
+from modelmesh_tpu_torch.observability import tracing
 from modelmesh_tpu_torch.ops import costs as costs_mod
 from modelmesh_tpu_torch.ops import cuda_lse, cuda_sparse
 from modelmesh_tpu_torch.ops.auction import (
@@ -286,37 +294,43 @@ def solve_sparse(problem, config, seed: int, init):
 
     check_sparse_config(config)
     seed = int(seed) & 0xFFFFFFFF
-    C = costs_mod.assemble_cost(
-        problem, weights=config.weights, dtype=config.dtype
-    )
+    with tracing.refresh_span("cost", mark=True):
+        C = costs_mod.assemble_cost(
+            problem, weights=config.weights, dtype=config.dtype
+        )
     resolve_sparse_impl(config.sparse_impl, C.device)
-    cost_k, idx_k, feas_k, fused = topk_candidates(
-        C, problem.feasible, config.topk, seed=seed
-    )
-    copies = torch.clamp_max(problem.copies, MAX_COPIES)
-    row_mass = problem.sizes * copies.to(torch.float32)
-    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
-    sk = sparse_sinkhorn(
-        C, fused, row_mass, free,
-        eps=config.eps, iters=config.sinkhorn_iters,
-        g0=None if init is None else init.g0,
-        tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
-    )
-    # Per-element arithmetic and the dtype quantization match the
-    # reference's gathered plan logits.
-    logits_k = (
-        (sk.f[:, None] + sk.g[idx_k] - cost_k.to(torch.float32)) / config.eps
-    ).to(config.dtype)
-    scores_k = perturb_gathered(logits_k, idx_k, feas_k, config.tau, seed)
-    res = sparse_auction(
-        scores_k, idx_k, problem.sizes, copies, free,
-        iters=config.auction_iters, eta=config.eta,
-        final_select=config.final_select,
-        stall_tol=config.auction_stall_tol,
-        price0=None if init is None else init.price0,
-        sel_k=config.sel_width or MAX_COPIES,
-        load_impl=config.load_impl,
-    )
+    with tracing.refresh_span("select"):
+        cost_k, idx_k, feas_k, fused = topk_candidates(
+            C, problem.feasible, config.topk, seed=seed
+        )
+    with tracing.refresh_span("transport", mark=True):
+        copies = torch.clamp_max(problem.copies, MAX_COPIES)
+        row_mass = problem.sizes * copies.to(torch.float32)
+        free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+        sk = sparse_sinkhorn(
+            C, fused, row_mass, free,
+            eps=config.eps, iters=config.sinkhorn_iters,
+            g0=None if init is None else init.g0,
+            tol=config.sinkhorn_tol, chunk=config.sinkhorn_chunk,
+        )
+        # Per-element arithmetic and the dtype quantization match the
+        # reference's gathered plan logits.
+        logits_k = (
+            (sk.f[:, None] + sk.g[idx_k] - cost_k.to(torch.float32))
+            / config.eps
+        ).to(config.dtype)
+    with tracing.refresh_span("auction", mark=True):
+        scores_k = perturb_gathered(logits_k, idx_k, feas_k, config.tau,
+                                    seed)
+        res = sparse_auction(
+            scores_k, idx_k, problem.sizes, copies, free,
+            iters=config.auction_iters, eta=config.eta,
+            final_select=config.final_select,
+            stall_tol=config.auction_stall_tol,
+            price0=None if init is None else init.price0,
+            sel_k=config.sel_width or MAX_COPIES,
+            load_impl=config.load_impl,
+        )
     return Placement(
         indices=res.indices, valid=res.valid, load=res.load,
         overflow=res.overflow, row_err=sk.row_err, f=sk.f, g=sk.g,
@@ -370,37 +384,42 @@ def resolve_dirty_rows(
     dirty_rows = dirty_rows.long()
     rows = torch.clamp(dirty_rows, 0, n - 1)
     pad = dirty_rows >= n
-    C_d = costs_mod.assemble_cost_rows(
-        problem, rows, weights=config.weights, dtype=config.dtype
-    )
-    Cf = C_d.to(torch.float32)
-    copies_d = torch.where(
-        pad, 0, torch.clamp_max(problem.copies[rows], MAX_COPIES)
-    )
-    row_mass_d = problem.sizes[rows] * copies_d.to(torch.float32)
-    g = torch.clamp_max(g0.to(torch.float32), 0.0)
-    prices = torch.clamp_min(price0.to(torch.float32), 0.0)
-    lse = cuda_lse.row_lse(C_d, g, config.eps)
-    f_d = config.eps * (torch.log(torch.clamp_min(row_mass_d, _TINY)) - lse)
-    logits_d = ((f_d[:, None] + g[None, :] - Cf) / config.eps).to(
-        config.dtype
-    )
-    scores = logits_d.to(torch.float32)
-    if config.tau > 0:
-        cols = torch.arange(m, device=dev)
-        scores = scores + config.tau * hash_gumbel_at(
-            rows[:, None], cols[None, :], seed
+    with tracing.refresh_span("cost", mark=True):
+        C_d = costs_mod.assemble_cost_rows(
+            problem, rows, weights=config.weights, dtype=config.dtype
         )
-    scores = torch.where(problem.feasible[rows], scores, _NEG_INF)
-    idx_d, valid_d = _select(scores - prices[None, :], copies_d)
-    indices = _merge_rows(base_indices, dirty_rows, idx_d)
-    valid = _merge_rows(base_valid, dirty_rows, valid_d)
-    load = _implied_load(
-        indices, valid, problem.sizes, m,
-        resolve_load_impl(config.load_impl, dev),
-    )
-    free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
-    overflow = torch.clamp_min(load - torch.clamp_min(free, 1e-6), 0.0).sum()
+    with tracing.refresh_span("transport", mark=True):
+        Cf = C_d.to(torch.float32)
+        copies_d = torch.where(
+            pad, 0, torch.clamp_max(problem.copies[rows], MAX_COPIES)
+        )
+        row_mass_d = problem.sizes[rows] * copies_d.to(torch.float32)
+        g = torch.clamp_max(g0.to(torch.float32), 0.0)
+        prices = torch.clamp_min(price0.to(torch.float32), 0.0)
+        lse = cuda_lse.row_lse(C_d, g, config.eps)
+        f_d = config.eps * (
+            torch.log(torch.clamp_min(row_mass_d, _TINY)) - lse)
+        logits_d = ((f_d[:, None] + g[None, :] - Cf) / config.eps).to(
+            config.dtype
+        )
+    with tracing.refresh_span("auction", mark=True):
+        scores = logits_d.to(torch.float32)
+        if config.tau > 0:
+            cols = torch.arange(m, device=dev)
+            scores = scores + config.tau * hash_gumbel_at(
+                rows[:, None], cols[None, :], seed
+            )
+        scores = torch.where(problem.feasible[rows], scores, _NEG_INF)
+        idx_d, valid_d = _select(scores - prices[None, :], copies_d)
+        indices = _merge_rows(base_indices, dirty_rows, idx_d)
+        valid = _merge_rows(base_valid, dirty_rows, valid_d)
+        load = _implied_load(
+            indices, valid, problem.sizes, m,
+            resolve_load_impl(config.load_impl, dev),
+        )
+        free = torch.clamp_min(problem.capacity - problem.reserved, 0.0)
+        overflow = torch.clamp_min(
+            load - torch.clamp_min(free, 1e-6), 0.0).sum()
     return Placement(
         indices=indices, valid=valid, load=load, overflow=overflow,
         row_err=base_row_err, f=None, g=g0, prices=price0,

@@ -60,6 +60,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from modelmesh_tpu_torch.observability import tracing
 from modelmesh_tpu_torch.placement.torch_engine import (
     INCREMENTAL_OVERFLOW_FRAC,
     GlobalPlan,
@@ -118,7 +119,10 @@ class PipelinedRefresher:
             # for the next real refresh (a transient empty view must not
             # force a cold solve).
             return self.drain()
-        with strat._refresh_lock:
+        # Refresh N's span record is current while its snapshot and
+        # dispatch run (and plan N-1, which resolves its own record, is
+        # finalized): on a profiler's trace submit N is one mm.refresh.
+        with strat._refresh_lock, tracing.RefreshSpans().current():
             t0 = time.perf_counter()
             cols, delta, dm, di = strat._build_cols_locked(
                 models, instances, rpm_fn, incremental

@@ -29,6 +29,13 @@ does not wait for a solve dispatched after it (the pipelined refresher,
 (``device.host_syncs``) and reported per solve in
 ``plan.stats["host_syncs"]``. Buffer donation has no PyTorch port and
 raises; the device ``carry`` is accepted.
+
+Each refresh keeps a span record (``observability.tracing.RefreshSpans``):
+spans ``mm.refresh.snapshot``, ``.rpm``, ``.dispatch``, ``.cost``,
+``.select`` (sparse tier), ``.transport``, ``.auction``, ``.gate``,
+``.readback_wait`` and ``.extract``, as ``record_function`` ranges while a
+``torch.profiler`` records, and the device time of each solve layer, which
+``finalize_plan`` writes into ``plan.stats``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from modelmesh_tpu_torch import device as device_mod
+from modelmesh_tpu_torch.observability import tracing
 from modelmesh_tpu_torch.ops.costs import PlacementProblem
 from modelmesh_tpu_torch.ops.sinkhorn import resolve_lse_impl
 from modelmesh_tpu_torch.ops.solve import (
@@ -125,11 +133,14 @@ class SnapshotCache:
 
 
 def _rpm_column(rpm_fn: Optional[RpmSource], model_ids, n: int) -> np.ndarray:
-    """Per-model rpm read (all zeros without a source)."""
-    if rpm_fn is None:
-        return np.zeros(n, np.float32)
-    lookup = rpm_fn.get if isinstance(rpm_fn, Mapping) else rpm_fn
-    return np.fromiter((lookup(mid) or 0 for mid in model_ids), np.float32, n)
+    """Per-model rpm read (all zeros without a source): the refresh span
+    ``rpm``."""
+    with tracing.refresh_span("rpm"):
+        if rpm_fn is None:
+            return np.zeros(n, np.float32)
+        lookup = rpm_fn.get if isinstance(rpm_fn, Mapping) else rpm_fn
+        return np.fromiter((lookup(mid) or 0 for mid in model_ids),
+                           np.float32, n)
 
 
 def _derived_columns(rpm, last_used, sizes, loaded_rows, loaded_cols,
@@ -843,6 +854,9 @@ class PendingSolve(NamedTuple):
     t_dispatched: Optional[float] = None  # perf_counter when dispatch returned
     # None: finalize_plan enqueues the readback itself.
     readback: Optional[device_mod.Readback] = None
+    # The refresh's span record (None outside a refresh): finalize_plan
+    # resolves it into plan.stats.
+    spans: Optional[tracing.RefreshSpans] = None
 
 
 def dispatch_solve(
@@ -897,9 +911,30 @@ def dispatch_solve(
     if donate:
         raise NotImplementedError("buffer donation has no PyTorch port")
     dev = _solve_device(mesh, device)
-    syncs0 = device_mod.host_syncs
+    syncs0, waited0 = device_mod.host_syncs, device_mod.host_sync_s
     t_start = time.perf_counter() if t_start is None else t_start
     t_snapshot = time.perf_counter() if t_snapshot is None else t_snapshot
+    spans = tracing.current_refresh()
+    if spans is not None:
+        spans.begin_solve(dev if mesh is None else None)
+    with tracing.record_span(spans, "dispatch"):
+        sol, fields = _dispatch(cols, seed, mesh, warm_g, warm_price,
+                                config, carry, base, dirty_rows, dev)
+        readback = _enqueue_readback(sol)
+        if spans is not None:
+            spans.mark("done", readback.done)
+            spans.gate_wait_ms = (device_mod.host_sync_s - waited0) * 1e3
+    return PendingSolve(
+        cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
+        dispatch_syncs=device_mod.host_syncs - syncs0, readback=readback,
+        t_dispatched=time.perf_counter(), spans=spans, **fields,
+    )
+
+
+def _dispatch(cols, seed, mesh, warm_g, warm_price, config, carry, base,
+              dirty_rows, dev):
+    """``dispatch_solve``'s expansion and solve: the solution and the
+    ``PendingSolve`` fields that describe its path."""
     n_pad = _bucket(len(cols.model_ids))
     m_pad = _bucket(len(cols.instance_ids), 64)
     max_copies = int(cols.copies.max()) if len(cols.copies) else 1
@@ -915,7 +950,8 @@ def dispatch_solve(
                 "(stale base after a fleet resize?)"
             )
         impl = resolve_lse_impl(cfg.lse_impl, dev)
-        problem = _expand_problem_device(cols, dev)
+        with tracing.refresh_span("cost"):
+            problem = _expand_problem_device(cols, dev)
         d = np.asarray(sorted(int(r) for r in dirty_rows), np.int64)
         padded = np.full(_bucket(max(len(d), 1), 64), n_pad, np.int64)
         padded[: len(d)] = d
@@ -923,14 +959,8 @@ def dispatch_solve(
             problem, cfg, seed, torch.from_numpy(padded).to(dev),
             base.indices, base.valid, base.g, base.prices, base.row_err,
         )
-        return PendingSolve(
-            cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
-            warm=True, path="incremental", topk=cfg.topk,
-            impl_knob="lse_impl", impl=impl,
-            dispatch_syncs=device_mod.host_syncs - syncs0,
-            dirty_rows=len(d), readback=_enqueue_readback(sol),
-            t_dispatched=time.perf_counter(),
-        )
+        return sol, dict(warm=True, path="incremental", topk=cfg.topk,
+                         impl_knob="lse_impl", impl=impl, dirty_rows=len(d))
 
     if sparse:
         impl_knob, impl = "sparse_impl", resolve_sparse_impl(
@@ -966,23 +996,19 @@ def dispatch_solve(
                 f"mesh {dict(mesh.shape)} does not divide the padded problem "
                 f"[{n_pad}, {m_pad}]"
             )
+        with tracing.refresh_span("cost"):
+            blocks = _expand_problem_blocks(cols, mesh)
         sol = make_sharded_solver(mesh, cfg)(
-            _expand_problem_blocks(cols, mesh), seed=seed, g0=init.g0,
-            price0=init.price0,
+            blocks, seed=seed, g0=init.g0, price0=init.price0,
         )
         path = "sharded-sparse" if sparse else "sharded"
     else:
-        problem = _expand_problem_device(cols, dev)
+        with tracing.refresh_span("cost"):
+            problem = _expand_problem_device(cols, dev)
         sol = solve_placement(problem, config=cfg, seed=seed, init=init)
         path = "sparse" if sparse else "dense"
-    return PendingSolve(
-        cols=cols, sol=sol, t_start=t_start, t_snapshot=t_snapshot,
-        warm=warm, path=path,
-        topk=cfg.topk if sparse else 0,
-        impl_knob=impl_knob, impl=impl,
-        dispatch_syncs=device_mod.host_syncs - syncs0,
-        readback=_enqueue_readback(sol), t_dispatched=time.perf_counter(),
-    )
+    return sol, dict(warm=warm, path=path, topk=cfg.topk if sparse else 0,
+                     impl_knob=impl_knob, impl=impl)
 
 
 def _solve_device(mesh, device) -> torch.device:
@@ -1033,28 +1059,33 @@ def finalize_plan(
     ``warm_price`` dicts are built from the g and prices in the buffer.
     ``solve_ms`` runs from the end of the snapshot to the end of the
     wait, ``dispatch_ms`` to the dispatch's return, and
-    ``readback_wait_ms`` is the wait alone."""
-    cols, sol = pending.cols, pending.sol
+    ``readback_wait_ms`` is the wait alone. The refresh's span record,
+    when the pending solve carries one, adds its keys
+    (``RefreshSpans.resolve``)."""
+    cols, sol, spans = pending.cols, pending.sol, pending.spans
     m_pad = sol.load.shape[0]
     rows, width = sol.indices.shape[0], sol.indices.shape[1] + 1
     rb = pending.readback
     if rb is None:
         rb = _enqueue_readback(sol)
     t_wait = time.perf_counter()
-    host = device_mod.finish_readback(rb).numpy()
+    with tracing.record_span(spans, "readback_wait"):
+        host = device_mod.finish_readback(rb).numpy()
     packed = host[:rows * width].reshape(rows, width)
     scalars = host[rows * width:].view(np.float32)
     t2 = time.perf_counter()
-    n = len(cols.model_ids)
-    idxa = packed[:n, :-1]
-    counts = packed[:n, -1].astype(np.uint8)
-    # Hottest-first order: publishers truncate from the tail.
-    order = np.argsort(-cols.rates, kind="stable")
-    idxo = idxa[order]
-    counts = counts[order]
-    valid = np.arange(idxo.shape[1], dtype=np.uint8)[None, :] < counts[:, None]
-    flat = idxo[valid]
-    model_ids = [cols.model_ids[i] for i in order.tolist()]
+    with tracing.record_span(spans, "extract"):
+        n = len(cols.model_ids)
+        idxa = packed[:n, :-1]
+        counts = packed[:n, -1].astype(np.uint8)
+        # Hottest-first order: publishers truncate from the tail.
+        order = np.argsort(-cols.rates, kind="stable")
+        idxo = idxa[order]
+        counts = counts[order]
+        valid = (np.arange(idxo.shape[1], dtype=np.uint8)[None, :]
+                 < counts[:, None])
+        flat = idxo[valid]
+        model_ids = [cols.model_ids[i] for i in order.tolist()]
     t3 = time.perf_counter()
     plan = GlobalPlan.from_columnar(
         model_ids, counts, flat, cols.instance_ids, now_ms(),
@@ -1090,6 +1121,8 @@ def finalize_plan(
         plan.warm_price = dict(
             zip(cols.instance_ids, p_arr.astype(float).tolist())
         )
+    if spans is not None:
+        spans.resolve(plan.stats)
     return plan
 
 
@@ -1109,21 +1142,24 @@ def solve_plan(
 ) -> GlobalPlan:
     """One global solve -> GlobalPlan (blocking): snapshot (unless
     ``cols`` is given), ``dispatch_solve`` on ``device`` (or sharded over
-    ``mesh``), then ``finalize_plan``. Stage timings land in
-    ``plan.stats``."""
+    ``mesh``), then ``finalize_plan``. Stage timings and the refresh's
+    spans land in ``plan.stats``."""
     if not models or not instances:
         return GlobalPlan({}, now_ms(), 0.0)
-    t0 = time.perf_counter()
-    if cols is None:
-        cols = snapshot_columns(
-            models, instances, rpm_fn, constraints=constraints
+    with tracing.RefreshSpans().current():
+        t0 = time.perf_counter()
+        if cols is None:
+            with tracing.refresh_span("snapshot"):
+                cols = snapshot_columns(
+                    models, instances, rpm_fn, constraints=constraints
+                )
+        t1 = time.perf_counter()
+        pending = dispatch_solve(
+            cols, seed=seed, mesh=mesh, warm_g=warm_g,
+            warm_price=warm_price, config=config, t_start=t0,
+            t_snapshot=t1, device=device,
         )
-    t1 = time.perf_counter()
-    pending = dispatch_solve(
-        cols, seed=seed, mesh=mesh, warm_g=warm_g, warm_price=warm_price,
-        config=config, t_start=t0, t_snapshot=t1, device=device,
-    )
-    return finalize_plan(pending)
+        return finalize_plan(pending)
 
 
 def auto_mesh():
@@ -1251,10 +1287,14 @@ class TorchPlacementStrategy(PlacementStrategy):
                     self._dirty_instances[iid] = ver
 
     def _take_dirty(self) -> tuple[dict, dict]:
+        """The marks since the last refresh, consumed; their counts are
+        the refresh's ``dirty_models`` / ``dirty_instances``."""
         with self._dirty_lock:
             dm, di = self._dirty_models, self._dirty_instances
             self._dirty_models, self._dirty_instances = {}, {}
-            return dm, di
+        tracing.refresh_count("dirty_models", len(dm))
+        tracing.refresh_count("dirty_instances", len(di))
+        return dm, di
 
     def _requeue_stale_marks_locked(self, dm, di, models, instances) -> None:
         """Re-queue consumed marks whose record version is newer than the
@@ -1280,29 +1320,31 @@ class TorchPlacementStrategy(PlacementStrategy):
             self.mark_dirty(stale_m, stale_i)
 
     def _build_cols_locked(self, models, instances, rpm_fn, incremental: bool):
-        """Delta-patch the cached snapshot when allowed, else rebuild it.
-        Returns (cols, was_delta, dirty_models, dirty_instances)."""
-        dm, di = self._take_dirty()
-        if (
-            incremental
-            and self._snap_cache is not None
-            and self._delta_streak < MAX_DELTA_STREAK
-        ):
-            cols = patch_columns(
-                self._snap_cache, models, instances, rpm_fn,
-                set(dm), set(di), constraints=self.constraints,
+        """Delta-patch the cached snapshot when allowed, else rebuild it
+        (the refresh span ``snapshot``). Returns (cols, was_delta,
+        dirty_models, dirty_instances)."""
+        with tracing.refresh_span("snapshot"):
+            dm, di = self._take_dirty()
+            if (
+                incremental
+                and self._snap_cache is not None
+                and self._delta_streak < MAX_DELTA_STREAK
+            ):
+                cols = patch_columns(
+                    self._snap_cache, models, instances, rpm_fn,
+                    set(dm), set(di), constraints=self.constraints,
+                )
+                if cols is not None:
+                    self._delta_streak += 1
+                    self._requeue_stale_marks_locked(dm, di, models, instances)
+                    return cols, True, dm, di
+            cols, self._snap_cache = snapshot_columns(
+                models, instances, rpm_fn, constraints=self.constraints,
+                return_cache=True,
             )
-            if cols is not None:
-                self._delta_streak += 1
-                self._requeue_stale_marks_locked(dm, di, models, instances)
-                return cols, True, dm, di
-        cols, self._snap_cache = snapshot_columns(
-            models, instances, rpm_fn, constraints=self.constraints,
-            return_cache=True,
-        )
-        self._delta_streak = 0
-        self._requeue_stale_marks_locked(dm, di, models, instances)
-        return cols, False, dm, di
+            self._delta_streak = 0
+            self._requeue_stale_marks_locked(dm, di, models, instances)
+            return cols, False, dm, di
 
     def _epoch_carries_locked(self, delta: bool):
         """Noise-epoch discipline: a delta refresh keeps the seed and may
@@ -1417,11 +1459,12 @@ class TorchPlacementStrategy(PlacementStrategy):
             self._generation += 1
             delta = None
             if models and instances:
-                t0 = time.perf_counter()
-                cols, delta, dm, di = self._build_cols_locked(
-                    models, instances, rpm_fn, incremental
-                )
-                plan = self._solve_locked(cols, delta, dm, di, t0)
+                with tracing.RefreshSpans().current():
+                    t0 = time.perf_counter()
+                    cols, delta, dm, di = self._build_cols_locked(
+                        models, instances, rpm_fn, incremental
+                    )
+                    plan = self._solve_locked(cols, delta, dm, di, t0)
             else:
                 # Empty view: no solve, so the seed does not rotate and
                 # the carries stay paired with the current draw.

@@ -504,9 +504,12 @@ class BackgroundTasks:
         views, records = step.views, step.records
         live = {iid for iid, _ in views}
         now = now_ms()
-        # Leader-published fleet gauges (reference cluster-scope metrics).
         from modelmesh_tpu_torch.observability.metrics import Metric as _MX
 
+        if step.plan is not None:
+            # The refresh's host time: snapshot, solve, readback and plan.
+            inst.metrics.observe(_MX.PLACEMENT_SOLVE_TIME, step.refresh_ms)
+        # Leader-published fleet gauges (reference cluster-scope metrics).
         inst.metrics.set_gauge(_MX.CLUSTER_INSTANCES, len(views))
         inst.metrics.set_gauge(_MX.CLUSTER_MODELS, len(records))
         inst.metrics.set_gauge(

@@ -31,6 +31,7 @@ import time
 
 import pytest
 
+from modelmesh_tpu_torch.observability import metrics as port_metrics
 from modelmesh_tpu_torch.placement import plan_sync
 from modelmesh_tpu_torch.placement.torch_engine import TorchPlacementStrategy
 from tests.test_torch_api import INFO, PORT, REF, Cluster, wait_for
@@ -507,6 +508,54 @@ def test_reaper_tick_publishes_a_plan_every_follower_adopts():
                              == steps[0].plan.generation
                              for s in strategies), "every pod adopting")
         assert all(s.plan.to_bytes() == published for s in strategies)
+    finally:
+        c.close()
+
+
+class _SolveTimes(port_metrics.Metrics):
+    """Records the placement solve-time samples a pod observes."""
+
+    def __init__(self):
+        self.samples = []
+
+    def observe(self, metric, value_ms, model_id=""):
+        if metric is port_metrics.Metric.PLACEMENT_SOLVE_TIME:
+            self.samples.append(value_ms)
+
+
+def test_leader_tick_observes_the_solve_time():
+    c = Cluster(PORT, n=2,
+                strategy_factory=lambda: TorchPlacementStrategy(device="cpu"))
+    try:
+        insts = [p.instance for p in c.pods]
+        for k in range(4):
+            insts[0].register_model(
+                f"s-{k}", PORT.spi.ModelInfo("example", f"mem://s{k}"))
+        for inst in insts:
+            inst.registry_view.wait_for(lambda v: len(v) == 4, timeout=10)
+        wait_for(lambda: sum(i.is_leader for i in insts) == 1, "a leader")
+        leader = next(i for i in insts if i.is_leader)
+        follower = next(i for i in insts if not i.is_leader)
+        seen = {id(leader): _SolveTimes(), id(follower): _SolveTimes()}
+        for inst in (leader, follower):
+            inst.metrics = seen[id(inst)]
+        steps = []
+        real = PORT.tasks.reaper_plan_step
+
+        def spy(*args, **kwargs):
+            steps.append(real(*args, **kwargs))
+            return steps[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(PORT.tasks, "reaper_plan_step", spy)
+            for _ in range(2):
+                PORT.tasks.BackgroundTasks(
+                    leader, PORT.tasks.TaskConfig())._reaper_tick()
+            PORT.tasks.BackgroundTasks(
+                follower, PORT.tasks.TaskConfig())._reaper_tick()
+        assert len(steps) == 2 and all(s.plan is not None for s in steps)
+        assert seen[id(leader)].samples == [s.refresh_ms for s in steps]
+        assert seen[id(follower)].samples == []
     finally:
         c.close()
 
