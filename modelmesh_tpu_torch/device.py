@@ -30,6 +30,7 @@ import threading
 import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from modelmesh_tpu_torch.observability import tracing
@@ -103,6 +104,17 @@ def item(t: torch.Tensor):
         value = t.item()
     _count_sync(time.perf_counter() - t0)
     return value
+
+
+def upload(a, device) -> torch.Tensor:
+    """Host array ``a`` on ``device`` without a host sync: to a CUDA
+    device from a pinned copy, non-blocking on the current stream (the
+    pinned block is held until the copy has run); on the CPU the array
+    itself, shared."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 class Readback(NamedTuple):

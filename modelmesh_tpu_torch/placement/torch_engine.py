@@ -22,9 +22,10 @@ path off, as the reference does.
 Differences from the reference: the solve's convergence gates run on the
 host, so ``dispatch_solve`` returns after the solve's last gate decision
 (only the tail of the solve is still in flight; the incremental path has
-no gates). The dispatch enqueues the result's copy to pinned host memory
-behind the solve, and ``finalize_plan`` waits on that copy's event, so it
-does not wait for a solve dispatched after it (the pipelined refresher,
+no gates). The dispatch enqueues, behind the solve, the plan's
+hottest-first order and its compaction and then the result's copy to
+pinned host memory, and ``finalize_plan`` waits on that copy's event, so
+it does not wait for a solve dispatched after it (the pipelined refresher,
 ``placement/refresh_loop.py``). Every host sync on the path is counted
 (``device.host_syncs``) and reported per solve in
 ``plan.stats["host_syncs"]``. Buffer donation has no PyTorch port and
@@ -77,6 +78,25 @@ from modelmesh_tpu_torch.utils import envs
 log = logging.getLogger(__name__)
 
 RpmSource = Union[Callable[[str], int], Mapping[str, int]]
+
+
+class IdList(list):
+    """A snapshot's model ids: a list that also holds them as an object
+    array, built once with the snapshot (delta patches reuse it), so
+    ``finalize_plan`` reorders the ids with one fancy index instead of a
+    Python loop a refresh. Never mutated after it is built."""
+
+    __slots__ = ("array",)
+
+    def __init__(self, ids=()):
+        super().__init__(ids)
+        self.array = np.array(self, dtype=object)
+
+
+def _id_array(ids: list) -> np.ndarray:
+    """object[N] of ``ids``: the snapshot's own array when it has one."""
+    arr = getattr(ids, "array", None)
+    return arr if arr is not None else np.array(ids, dtype=object)
 
 
 class ProblemColumns(NamedTuple):
@@ -174,7 +194,7 @@ def snapshot_columns(
     the per-type masks; without it every instance is a candidate. With
     ``return_cache`` the pair ``(cols, SnapshotCache)`` comes back, for
     later ``patch_columns`` calls."""
-    model_ids = [mid for mid, _ in models]
+    model_ids = IdList(mid for mid, _ in models)
     instance_ids = [iid for iid, _ in instances]
     n, m = len(model_ids), len(instance_ids)
     inst_index = {iid: j for j, iid in enumerate(instance_ids)}
@@ -920,7 +940,8 @@ def dispatch_solve(
     with tracing.record_span(spans, "dispatch"):
         sol, fields = _dispatch(cols, seed, mesh, warm_g, warm_price,
                                 config, carry, base, dirty_rows, dev)
-        readback = _enqueue_readback(sol)
+        readback = _enqueue_readback(sol, fields.pop("rates"),
+                                     len(cols.model_ids))
         if spans is not None:
             spans.mark("done", readback.done)
             spans.gate_wait_ms = (device_mod.host_sync_s - waited0) * 1e3
@@ -960,7 +981,8 @@ def _dispatch(cols, seed, mesh, warm_g, warm_price, config, carry, base,
             base.indices, base.valid, base.g, base.prices, base.row_err,
         )
         return sol, dict(warm=True, path="incremental", topk=cfg.topk,
-                         impl_knob="lse_impl", impl=impl, dirty_rows=len(d))
+                         impl_knob="lse_impl", impl=impl, dirty_rows=len(d),
+                         rates=problem.rates)
 
     if sparse:
         impl_knob, impl = "sparse_impl", resolve_sparse_impl(
@@ -1001,14 +1023,18 @@ def _dispatch(cols, seed, mesh, warm_g, warm_price, config, carry, base,
         sol = make_sharded_solver(mesh, cfg)(
             blocks, seed=seed, g0=init.g0, price0=init.price0,
         )
+        # The rates are split across the shards: the plan's order takes
+        # a copy of the host column on the first device.
+        rates = device_mod.upload(cols.rates, dev)
         path = "sharded-sparse" if sparse else "sharded"
     else:
         with tracing.refresh_span("cost"):
             problem = _expand_problem_device(cols, dev)
         sol = solve_placement(problem, config=cfg, seed=seed, init=init)
+        rates = problem.rates
         path = "sparse" if sparse else "dense"
     return sol, dict(warm=warm, path=path, topk=cfg.topk if sparse else 0,
-                     impl_knob=impl_knob, impl=impl)
+                     impl_knob=impl_knob, impl=impl, rates=rates)
 
 
 def _solve_device(mesh, device) -> torch.device:
@@ -1025,24 +1051,64 @@ def _solve_device(mesh, device) -> torch.device:
     return first
 
 
-def _compact_result(sol) -> torch.Tensor:
-    """[N, MAX_COPIES + 1] int32: the chosen indices plus the per-row
-    valid count (``valid`` is a prefix mask by construction, so the count
-    loses nothing)."""
-    cnt = sol.valid.sum(dim=1, dtype=torch.int32)
-    return torch.cat([sol.indices.to(torch.int32), cnt[:, None]], dim=1)
+def _hottest_first(rates: torch.Tensor) -> torch.Tensor:
+    """i64[n]: ``np.argsort(-rates, kind="stable")``, on the rates'
+    device. The key is -rates as an int32 that orders as the float does:
+    ``0 - rates`` makes -0 and +0 one key, every NaN is one key past +inf
+    (numpy sorts NaN last), and the stable sort keeps ties in row
+    order."""
+    neg = 0.0 - rates.to(torch.float32)
+    bits = neg.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    key = key.masked_fill(torch.isnan(neg), torch.iinfo(torch.int32).max)
+    return torch.sort(key, stable=True).indices
 
 
-def _enqueue_readback(sol) -> device_mod.Readback:
-    """The cycle's one readback, enqueued behind the solve: the packed
-    int32 plan (indices + valid counts) followed by the f32 overflow,
-    row_err and (when the solve has them) g and prices, carried in the
-    same int32 buffer bit for bit."""
+def _plan_parts(sol, rates: torch.Tensor, n: int) -> list:
+    """The plan in publish order, as int32 tensors enqueued on the
+    solve's device (no host sync: every shape is fixed by ``n``): each
+    row's position in the hottest-first order [n] (the inverse of the
+    order: the host scatters the ids by it, walking them in row order);
+    the rows' valid counts in that order, as u8 padded to whole int32s
+    [ceil(n / 4)]; and the rows' valid indices in that order, compacted
+    to the front of an [n * width] block (``_unpack_plan``). ``valid`` is
+    a prefix mask by construction, so a row's count is its first slots;
+    the other slots scatter to a dump slot past the block."""
+    width = sol.indices.shape[1]
+    order = _hottest_first(rates[:n])
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=order.device))
+    idx = sol.indices[:n].index_select(0, order).to(torch.int32)
+    cnt = sol.valid[:n].sum(dim=1, dtype=torch.int32).index_select(0, order)
+    start = torch.cumsum(cnt, 0) - cnt
+    slot = torch.arange(width, device=idx.device)
+    dest = torch.where(slot < cnt[:, None], start[:, None] + slot, n * width)
+    flat = torch.zeros(n * width + 1, dtype=torch.int32, device=idx.device)
+    flat.scatter_(0, dest.reshape(-1), idx.reshape(-1))
+    counts = torch.nn.functional.pad(cnt.to(torch.uint8), (0, -n % 4))
+    return [rank.to(torch.int32), counts.view(torch.int32), flat[:-1]]
+
+
+def _unpack_plan(host: np.ndarray, n: int, width: int):
+    """``_plan_parts`` from the readback's host buffer, as views: (rank
+    i32[n], counts u8[n], the compacted block i32[n * width], the f32
+    scalars and carries that follow it)."""
+    nc = (n + 3) // 4
+    end = n + nc + n * width
+    return (host[:n], host[n:n + nc].view(np.uint8)[:n],
+            host[n + nc:end], host[end:].view(np.float32))
+
+
+def _enqueue_readback(sol, rates: torch.Tensor, n: int) -> device_mod.Readback:
+    """The cycle's one readback, enqueued behind the solve: the plan in
+    publish order (``_plan_parts``) followed by the f32 overflow, row_err
+    and (when the solve has them) g and prices, carried in the same int32
+    buffer bit for bit."""
     floats = [sol.overflow.reshape(1), sol.row_err.reshape(1)]
     if sol.g is not None and sol.prices is not None:
         floats += [sol.g, sol.prices]
     return device_mod.start_readback(torch.cat([
-        _compact_result(sol).reshape(-1),
+        *_plan_parts(sol, rates, n),
         torch.cat([t.to(torch.float32) for t in floats]).view(torch.int32),
     ]))
 
@@ -1064,28 +1130,26 @@ def finalize_plan(
     (``RefreshSpans.resolve``)."""
     cols, sol, spans = pending.cols, pending.sol, pending.spans
     m_pad = sol.load.shape[0]
-    rows, width = sol.indices.shape[0], sol.indices.shape[1] + 1
+    n = len(cols.model_ids)
     rb = pending.readback
     if rb is None:
-        rb = _enqueue_readback(sol)
+        rates = device_mod.upload(cols.rates, sol.indices.device)
+        rb = _enqueue_readback(sol, rates, n)
     t_wait = time.perf_counter()
     with tracing.record_span(spans, "readback_wait"):
         host = device_mod.finish_readback(rb).numpy()
-    packed = host[:rows * width].reshape(rows, width)
-    scalars = host[rows * width:].view(np.float32)
     t2 = time.perf_counter()
     with tracing.record_span(spans, "extract"):
-        n = len(cols.model_ids)
-        idxa = packed[:n, :-1]
-        counts = packed[:n, -1].astype(np.uint8)
-        # Hottest-first order: publishers truncate from the tail.
-        order = np.argsort(-cols.rates, kind="stable")
-        idxo = idxa[order]
-        counts = counts[order]
-        valid = (np.arange(idxo.shape[1], dtype=np.uint8)[None, :]
-                 < counts[:, None])
-        flat = idxo[valid]
-        model_ids = [cols.model_ids[i] for i in order.tolist()]
+        # Hottest-first order (publishers truncate from the tail), taken
+        # and compacted on the device: only the ids move here. Scattered
+        # by rank, the ids are read in row order, the order they were
+        # allocated in, not in the hottest-first one: fewer cache misses.
+        rank, counts, flat, scalars = _unpack_plan(
+            host, n, sol.indices.shape[1])
+        flat = flat[:int(counts.sum(dtype=np.int64))]
+        ids = np.empty(n, dtype=object)
+        ids[rank] = _id_array(cols.model_ids)
+        model_ids = ids.tolist()
     t3 = time.perf_counter()
     plan = GlobalPlan.from_columnar(
         model_ids, counts, flat, cols.instance_ids, now_ms(),
@@ -1105,6 +1169,7 @@ def finalize_plan(
         "auction_iters_run": sol.auction_iters_run,
         # The dispatch's syncs and the readback's wait.
         "host_syncs": pending.dispatch_syncs + 1,
+        "readback_bytes": host.nbytes,
     }
     if pending.t_dispatched is not None:
         plan.stats["dispatch_ms"] = (

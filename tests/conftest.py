@@ -29,3 +29,8 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skipped on a host without one")
