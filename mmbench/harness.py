@@ -6,6 +6,11 @@ and a reader ``metrics/<metric>.py`` for each metric the run reports.
 The traffic's ``driver`` names the loop that drives the system; this
 file holds the one the present mixes use, ``rebalance``.
 
+A cell on several cards (``chips`` > 1) hands the strategy a mesh of
+that many CUDA cards on the model axis (``parallel.mesh.make_mesh``, as
+the strategy's ``auto_mesh`` builds one); a cell on one card runs on
+``cuda:0`` with no mesh.
+
 ``rebalance``: the leader's refresher as a closed loop with one refresh
 in flight. Each tick advances the logical clock by ``tick_ms``, applies
 one tick of events to the records and marks the changed ones dirty, then
@@ -130,59 +135,75 @@ def make_clock():
     return TickClock(EPOCH_MS), clock_mod
 
 
-def program(device, cfg: dict):
-    """The system under test: the port's strategy on ``device``, with
-    the configuration's solver pins in the environment (and no other)."""
+def cards(chips: int, device=None) -> list:
+    """The devices a run of ``chips`` cards uses, in rank order: the CUDA
+    cards ``0 .. chips - 1``, or with ``device`` (the CPU tests) that
+    device once a shard."""
+    if device is None:
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [torch.device(device)] * chips
+
+
+def program(devices: list, cfg: dict):
+    """The system under test: the port's strategy on ``devices[0]``, and
+    on a mesh over ``devices`` (the model axis) where there are several,
+    with the configuration's solver pins in the environment (and no
+    other)."""
     for key in [k for k in os.environ if k.startswith("MM_SOLVER_")]:
         del os.environ[key]
     os.environ.update(cfg.get("env", {}))
+    from modelmesh_tpu_torch.parallel.mesh import make_mesh
     from modelmesh_tpu_torch.placement.torch_engine import (
         TorchPlacementStrategy,
     )
 
-    return TorchPlacementStrategy(device=device)
+    mesh = make_mesh(devices=devices) if len(devices) > 1 else None
+    return TorchPlacementStrategy(mesh=mesh, device=devices[0])
 
 
 def launches() -> dict:
     """The port's kernel launch counters (program counters)."""
-    from modelmesh_tpu_torch.ops import cuda_load, cuda_lse
+    from modelmesh_tpu_torch.ops import cuda_load, cuda_lse, cuda_sparse
 
-    return dict(**cuda_load.launches, **cuda_lse.launches)
+    return dict(**cuda_load.launches, **cuda_lse.launches,
+                **cuda_sparse.launches)
 
 
 def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         *, t_start: float, device=None, sut=None, scale=None, config=None,
-        log=print) -> dict:
+        chips=None, metrics=None, log=print) -> dict:
     """One run; returns the result object. ``device`` None means the
-    cell's CUDA cards, and raises ``NoDevice`` without them. ``sut``
-    builds the system under test from (fleet, solver, clock, device):
-    the port's strategy by default. ``scale`` overrides the
-    configuration's models and pods, ``config`` its file (the CPU
-    tests)."""
+    cell's CUDA cards, and raises ``NoDevice`` without them; a device
+    (the CPU tests) holds every shard. ``sut`` builds the system under
+    test from (fleet, solver, clock, device): the port's strategy by
+    default. ``scale`` overrides the configuration's models and pods,
+    ``config`` its file, ``chips`` the cell's cards and ``metrics`` (a
+    list of (name, unit)) the metrics it reports (the trial runs of
+    configurations that no cell names, and the CPU tests)."""
     bench, wl, cfg, traffic = load(root, workload, config)
     if traffic["driver"] != "rebalance":
         raise ValueError(f"unknown driver {traffic['driver']!r}")
     if scale is not None:
         cfg = dict(cfg, models=scale[0], pods=scale[1])
+    wl = dict(wl, chips=int(wl["chips"] if chips is None else chips))
     on_card = device is None
-    if on_card:
-        if not torch.cuda.is_available() or (
-                torch.cuda.device_count() < int(wl["chips"])):
-            raise NoDevice(f"{workload} needs {wl['chips']} CUDA device(s)")
-        device = torch.device("cuda", 0)
-    device = torch.device(device)
+    if on_card and (not torch.cuda.is_available()
+                    or torch.cuda.device_count() < wl["chips"]):
+        raise NoDevice(f"{workload} needs {wl['chips']} CUDA device(s)")
+    devices = cards(wl["chips"], device)
     clock, clock_mod = make_clock()
     previous = clock_mod.install(clock)
     try:
         return _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start,
-                    device, on_card, sut, clock, log)
+                    devices, on_card, sut, clock, metrics, log)
     finally:
         clock_mod.install(previous)
 
 
-def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
-         on_card, sut, clock, log) -> dict:
+def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, devices,
+         on_card, sut, clock, wanted, log) -> dict:
     workload = wl["name"]
+    device = devices[0]
     solver = ref.solver_from(cfg)
     from modelmesh_tpu_torch.records import InstanceRecord, ModelRecord
 
@@ -193,13 +214,17 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
     fleet.predraw(int(traffic["warm_refreshes"])
                   + math.ceil(seconds * 1e3 / PREDRAW_MS))
     phases["fleet_s"] = time.perf_counter() - t_start
-    system = (sut or (lambda fl, s, c, d: program(d, cfg)))(
+    system = (sut or (lambda fl, s, c, d: program(devices, cfg)))(
         fleet, solver, clock, device)
     loop = Loop(system, fleet, clock, traffic, seed)
     loop.setup(int(traffic["warm_refreshes"]))
     phases["refreshes_ms"] = loop.setup_ms
-    sync = (lambda: torch.cuda.synchronize(device)) if on_card else (
-        lambda: None)
+    used = devices if on_card else []    # the cards to sync and read
+
+    def sync():
+        for d in used:
+            torch.cuda.synchronize(d)
+
     sync()
     setup_s = time.perf_counter() - t_start
     launches0 = launches()
@@ -215,13 +240,17 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
         with host:
             loop.window(seconds, sync)
     launched = {k: v - launches0[k] for k, v in launches().items()}
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    summary = tracer.summary(loop.stats) if tracer else None
+    peaks = [torch.cuda.max_memory_allocated(d) for d in used]
+    summary = tracer.summary(loop.stats, len(devices)) if tracer else None
     tracer = None
+    mesh = getattr(system, "mesh", None)
+    if mesh is not None:
+        mesh.close()
     system = loop.system = None
     gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+    for d in used:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
     t_check = time.perf_counter()
     judged = []
@@ -232,8 +261,9 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
         nums["refresh"] = k
         judged.append(nums)
     check_s = time.perf_counter() - t_check
-    numbers = {k: max(j[k] for j in judged) for k in check.NUMBERS}
-    limits = {k: float(cfg["limits"][k]) for k in check.NUMBERS}
+    names = check.numbers(solver)
+    numbers = {k: max(j[k] for j in judged) for k in names}
+    limits = {k: float(cfg["limits"][k]) for k in names}
     mirror = fleet.records_agree()
     correct = (check.verdict(numbers, limits) and loop.failed == 0
                and mirror)
@@ -242,19 +272,20 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
     rec = SimpleNamespace(
         setup_s=setup_s, window_s=loop.window_s, walls_ms=loop.walls_ms,
         stats=loop.stats, placed=placed, trace=summary, launches=launched,
-        n=fleet.n, m=fleet.m, entries=fleet.entries,
+        n=fleet.n, m=fleet.m, entries=fleet.entries, solver=solver,
+        cards=len(devices),
         card=card_line() if on_card else "cpu",
     )
     metrics = {}
-    for name, unit in metric_names(bench, workload, trace):
+    for name, unit in wanted or metric_names(bench, workload, trace):
         value = reader(name)(rec)
         if value is not None:
             metrics[name] = {"value": value, "unit": unit}
     dev_info = {
         "platform": "gpu" if on_card else "cpu",
         "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-        "count": int(wl["chips"]),
-        "memory_peak_bytes": int(peak),
+        "count": wl["chips"],
+        "memory_peak_bytes": int(max(peaks, default=0)),
     }
     result = {"correct": bool(correct), "attempted": loop.attempted,
               "failed": loop.failed, "metrics": metrics, "device": dev_info}
@@ -268,6 +299,8 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
             "idle_gaps": [[k, v] for k, v in gaps[:10]],
         }
     log(json.dumps({"card": rec.card, "refreshes": loop.attempted,
+                    "card_peaks": [int(b) for b in peaks],
+                    "card_busy_s": None if summary is None else summary.busy,
                     "window_s": loop.window_s, "setup_s": setup_s,
                     "check_s": check_s, "setup_phases": phases,
                     "walls_ms": loop.walls_ms,
@@ -284,8 +317,8 @@ def _run(bench, wl, cfg, traffic, seed, seconds, trace, t_start, device,
     if found:
         raise Forbidden(f"loaded: {', '.join(found)}")
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]}
-                        for k in check.NUMBERS}
-    for k in check.NUMBERS:
+                        for k in names}
+    for k in names:
         log(f"check {k} {numbers[k]!r} limit {limits[k]!r}")
     return result
 

@@ -1,9 +1,10 @@
 """implied_load_roofline: the least time the window's implied loads
-need at the card's peaks (``counts.implied_load_work`` a call: the
+need at the card's peaks (``counts.implied_load_work`` a load: the
 assignment's valid entries, one per wanted copy, the sizes and the
-loads; times the port's ``cuda_load.launches`` counter over the window),
-over the device time of ``load_kernel`` (csrc/implied_load.cu) in the
-trace."""
+loads; times the loads taken, the port's ``cuda_load.launches`` counter
+over the window, where on a mesh every card launches its share of each
+load), over the device time of ``load_kernel`` (csrc/implied_load.cu)
+in the trace, summed over the cards."""
 
 from mmbench import counts
 from mmbench.trace import kernel_matches
@@ -18,4 +19,5 @@ def read(run):
     if device_s <= 0:
         return None
     nbytes, flops = counts.implied_load_work(run.n, run.m, run.entries)
-    return 100.0 * calls * counts.least_seconds(nbytes, flops) / device_s
+    loads = calls / run.cards
+    return 100.0 * loads * counts.least_seconds(nbytes, flops) / device_s

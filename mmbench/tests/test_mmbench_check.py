@@ -127,12 +127,99 @@ def test_reference_auction_starts_from_the_carried_prices():
 
 
 def test_solver_refuses_what_the_reference_does_not_implement():
-    cfg = {"solver": {"eps": 0.05, "sinkhorn_iters": 10, "sinkhorn_tol": 0.0,
-                      "auction_iters": 40, "auction_stall_tol": 0.0,
-                      "eta": 0.5, "tau": 1.0, "topk": 0, "sel_width": 8}}
+    cfg = {"pods": 150,
+           "solver": {"eps": 0.05, "sinkhorn_iters": 10, "sinkhorn_tol": 0.0,
+                      "sinkhorn_chunk": 4, "auction_iters": 40,
+                      "auction_stall_tol": 0.0, "eta": 0.5, "tau": 1.0,
+                      "topk": 0, "sel_width": 8}}
     assert ref.solver_from(cfg) == SOLVER
-    for key, value in (("topk", 24), ("sinkhorn_tol", 0.02),
-                       ("auction_stall_tol", 1e-3), ("sel_width", 2)):
+    # The dense tier with a gate, or fewer slots than MAX_COPIES.
+    for key, value in (("sinkhorn_tol", 0.02), ("auction_stall_tol", 1e-3),
+                       ("sel_width", 2)):
         bad = {"solver": dict(cfg["solver"], **{key: value})}
         with pytest.raises(ValueError):
             ref.solver_from(bad)
+    # The top-K tier with its gates is taken; one as wide as the pods,
+    # with slots outside 1..MAX_COPIES or a negative tolerance is not.
+    topk = dict(cfg["solver"], topk=24, sinkhorn_tol=0.02,
+                auction_stall_tol=1e-3, auction_iters=8, sel_width=2)
+    got = ref.solver_from({"pods": 150, "solver": topk})
+    assert (got.topk, got.sel_width, got.sinkhorn_tol, got.sinkhorn_chunk,
+            got.auction_stall_tol) == (24, 2, 0.02, 4, 1e-3)
+    for key, value in (("topk", 150), ("topk", -1), ("sel_width", 0),
+                       ("sel_width", 9), ("sinkhorn_tol", -0.1),
+                       ("auction_stall_tol", -1.0)):
+        bad = {"pods": 150, "solver": dict(topk, **{key: value})}
+        with pytest.raises(ValueError):
+            ref.solver_from(bad)
+
+
+TOPK_SOLVER = SOLVER._replace(topk=24, sel_width=2, sinkhorn_tol=0.02,
+                              sinkhorn_chunk=4, auction_iters=8,
+                              auction_stall_tol=1e-3)
+THR = 0.02 * 0.05            # the Sinkhorn probe's threshold, tol * eps
+
+
+@pytest.mark.parametrize("gates, reported, want", [
+    # The probe stopped the loop: its move of g has to be under tol * eps.
+    (ref.Gates((0.5 * THR,), [], 1), 1, 0.0),
+    (ref.Gates((3.0 * THR,), [], 1), 1, 2.0),
+    # One chunk ran: the probe has to have failed and the chunk held.
+    (ref.Gates((2.0 * THR,), [0.01], 5), 5, 0.0),
+    (ref.Gates((0.5 * THR,), [0.01], 5), 5, 0.5),
+    (ref.Gates((2.0 * THR,), [0.03], 5), 5, 0.5),
+    # The budget (three chunks) ended the loop: the last need not hold,
+    # each before it must have failed.
+    (ref.Gates((2.0 * THR,), [0.04, 0.03, 0.025], 13), 13, 0.0),
+    (ref.Gates((2.0 * THR,), [0.04, 0.01, 0.025], 13), 13, 0.5),
+    # A count the gate cannot give, or none reported.
+    (ref.Gates((2.0 * THR,), [0.04, 0.03, 0.025], 13), 9, float("inf")),
+    (ref.Gates((2.0 * THR,), [0.01], 5), None, float("inf")),
+])
+def test_sinkhorn_gate_gap(gates, reported, want):
+    got = check.sinkhorn_gate_gap(TOPK_SOLVER, gates, reported)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("gates, reported, want", [
+    # The probe held by its price move, or by its overflow.
+    (ref.Gates((5e-4, 500.0, 100.0), [], 1), 1, 0.0),
+    (ref.Gates((5e-3, 50.0, 100.0), [], 1), 1, 0.0),
+    (ref.Gates((5e-3, 300.0, 100.0), [], 1), 1, 2.0),
+    # A round ran (the budget's one): the probe has to have failed.
+    (ref.Gates((5e-3, 300.0, 100.0), [(1e-2, 10.0, 290.0)], 9), 9, 0.0),
+    (ref.Gates((5e-3, 80.0, 100.0), [(1e-2, 10.0, 290.0)], 9), 9, 0.2),
+    (ref.Gates((5e-3, 300.0, 100.0), [(1e-2, 10.0, 290.0)], 9), 1,
+     float("inf")),
+])
+def test_auction_gate_gap(gates, reported, want):
+    got = check.auction_gate_gap(TOPK_SOLVER, gates, reported)
+    assert got == pytest.approx(want)
+
+
+def test_auction_gate_gap_over_several_rounds():
+    s = TOPK_SOLVER._replace(auction_iters=24)     # three rounds at most
+    probe = (5e-3, 300.0, 100.0)
+    # Stopped after round 2: round 1 must not have stalled, round 2 must.
+    stalled = ref.Gates(probe, [(1e-2, 10.0, 290.0), (5e-4, 5.0, 5.0)], 17)
+    assert check.auction_gate_gap(s, stalled, 17) == 0.0
+    early = ref.Gates(probe, [(5e-4, 10.0, 290.0), (5e-4, 5.0, 5.0)], 17)
+    assert check.auction_gate_gap(s, early, 17) == pytest.approx(0.5)
+    late = ref.Gates(probe, [(1e-2, 10.0, 290.0), (1e-2, 5.0, 200.0)], 17)
+    assert check.auction_gate_gap(s, late, 17) == pytest.approx(1.0)
+    # A best overflow of 0 stalls a round.
+    zero = ref.Gates(probe, [(1e-2, 0.0, 290.0)], 9)
+    assert check.auction_gate_gap(s, zero, 9) == 0.0
+
+
+def test_gates_off_read_nothing_but_the_count():
+    assert check.sinkhorn_gate_gap(SOLVER, ref.Gates((), [], 10), 10) == 0.0
+    assert check.auction_gate_gap(SOLVER, ref.Gates((), [], 40), 40) == 0.0
+    assert check.sinkhorn_gate_gap(SOLVER, ref.Gates((), [], 10), 9) == (
+        float("inf"))
+
+
+def test_numbers_of_each_tier():
+    assert check.numbers(SOLVER) == check.NUMBERS
+    assert check.numbers(TOPK_SOLVER) == check.NUMBERS + ("cand_misses",
+                                                          "gate_gap")

@@ -1,7 +1,8 @@
 """The control: the reference put in the program's place, with the cost
 and the plan logits in fp8 (the precision below the configuration's
 bf16), comes out not correct; the reference itself, in bf16, comes out
-correct. The chip's readings at the cell's size are in PERF.md."""
+correct. The chip's readings at the cell's size (``trial.py --sut
+control``) are in PERF.md."""
 
 import torch
 

@@ -4,7 +4,7 @@ out correct. On the CPU, the program's plain versions, a small fleet."""
 
 import pytest
 
-from mmbench_runs import Wrapped, cpu_run, wrapped
+from mmbench_runs import NoPriceSteps, Wrapped, cpu_run, wrapped
 
 
 class Unchanged(Wrapped):
@@ -42,18 +42,6 @@ class AlteredAnswer(Wrapped):
         j = pods.index(plan.placements[mid][0])
         plan.placements[mid] = [pods[(j + len(pods) // 2) % len(pods)]]
         return plan
-
-
-class NoPriceSteps(Wrapped):
-    """The auction's price steps left out (eta 0): every selection is made
-    at the carried prices, which then never move from the cold zeros."""
-
-    def __init__(self, inner, fleet):
-        super().__init__(inner, fleet)
-        from modelmesh_tpu_torch.ops.solve import SolveConfig
-
-        inner.solve_config = (inner.solve_config or SolveConfig())._replace(
-            eta=0.0)
 
 
 def test_sound_program_is_correct():
